@@ -1,0 +1,120 @@
+"""The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
+package, and its entry points run on the CUDA card unless the caller asks
+for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "parameter_server_distributed_tpu_torch")
+BLOCKED = ("jax", "jaxlib", "parameter_server_distributed_tpu")
+
+
+def _port_sources():
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        dirnames[:] = [d for d in dirnames if d != "__pycache__"]
+        for name in filenames:
+            if name.endswith(".py"):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _blocked(module: str) -> bool:
+    return any(module == b or module.startswith(b + ".") for b in BLOCKED)
+
+
+def test_no_jax_import_in_port_sources():
+    found = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                      for n in names if _blocked(n)]
+    assert found == []
+
+
+def test_name_match_is_whole_name():
+    assert _blocked("jax.numpy") and _blocked("parameter_server_distributed_tpu")
+    assert not _blocked("parameter_server_distributed_tpu_torch.models")
+    assert not _blocked("jaxtyping")
+
+
+def test_port_imports_and_serves_with_jax_blocked():
+    script = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+
+        BLOCKED = {BLOCKED!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".")
+                       for b in BLOCKED):
+                    raise ImportError(f"blocked import of {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import parameter_server_distributed_tpu_torch as port
+        for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            importlib.import_module(info.name)
+        from parameter_server_distributed_tpu_torch.models.registry import \\
+            get_model
+        from parameter_server_distributed_tpu_torch.models.serving import \\
+            DecodeServer
+        model = get_model("tiny_lm")
+        srv = DecodeServer(model, model.init_params(0, device="cpu"),
+                           slots=1, max_len=32, device="cpu")
+        rid = srv.submit([1, 2, 3], max_new_tokens=4)
+        assert len(srv.run_to_completion()[rid]) == 4
+        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+                       or m == "parameter_server_distributed_tpu"
+                       or m.startswith("parameter_server_distributed_tpu.")
+                       for m in sys.modules)
+        print("served")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "served" in proc.stdout
+
+
+def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
+    from parameter_server_distributed_tpu_torch.cli import serve_main
+    from parameter_server_distributed_tpu_torch.models import generation
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.serving import \
+        DecodeServer
+
+    model = get_model("tiny_lm")
+    params = model.init_params(0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generation.generate(model, params, [[1, 2]], 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeServer(model, params, slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main.main(["--model=tiny_lm"])
+
+
+def test_cpu_params_refused_for_another_device():
+    from parameter_server_distributed_tpu_torch.device import \
+        check_on_device
+
+    with pytest.raises(ValueError, match="lies on cpu"):
+        check_on_device({"w": torch.zeros(1)}, torch.device("meta"))
