@@ -2,14 +2,24 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout,
-holds each against its plain PyTorch version on the card, times it, then
-drives the serving path: a full-width llama_350m DecodeServer (bf16, 8
-slots, max_len 2048, flash prefill, random weights from a seed) answering
-8 requests, and the serve_main CLI answering 2 JSONL requests.  Each phase
-prints one JSON line; any failure exits non-zero before the last line,
-which is ``{"ok": true, "device": {...}}``.  Needs one card; exits
-non-zero without one.
+Builds every CUDA kernel of the port from the sources in this checkout
+(one nvcc per source, all at once), holds each kernel against its plain
+PyTorch version on the card and times it beside its bound and a library
+yardstick, then drives the two paths of the port:
+
+- serving: a full-width llama_350m DecodeServer (bf16, 8 slots, max_len
+  2048, flash prefill, random weights from a seed) answering 8 requests,
+  and the serve_main CLI answering 2 JSONL requests;
+- training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
+  flash attention, weights from a seed) taking 5 Trainer.compute_gradients
+  -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
+  tokens, then one sgd and one momentum apply over the same store.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after, and must equal the expected counts.  Each phase prints one JSON
+line; any failure exits non-zero before the last line, which is
+``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero
+without one.
 
 Comparisons in float32 run with TF32 off (torch.backends.*.allow_tf32 =
 False), so float32 products are full float32.
@@ -26,6 +36,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "parameter_server_distributed_tpu_torch"
+PALLAS = "parameter_server_distributed_tpu/ops/pallas/"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 on
 # the CUDA cores, HBM3 bandwidth
@@ -35,6 +46,8 @@ PEAK_BYTES = 3.35e12
 LLAMA = dict(heads=16, kv=4, d=64, layers=24)   # llama_350m attention
 PROMPT_LENS = (129, 200, 300, 511, 513, 700, 1000, 1200)
 NEW_TOKENS = 32
+TRAIN = dict(batch=8, seq=1024, steps=5, lr=1e-3)
+
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
@@ -68,72 +81,57 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, s, h, kv, d, dtype_name: str) -> tuple[float, str]:
-    """Least time for causal attention on this card: the larger of its
-    operations (2*B*H*D*S^2: the causal half of QK^T and PV) over the peak
-    rate for the input type and its bytes (q, k, v read once, o written
-    once, f32 lse written once) over the memory rate."""
-    elt = 2 if dtype_name == "bfloat16" else 4
-    flops = 2.0 * b * h * d * s * s
-    nbytes = elt * b * s * (2 * h + 2 * kv) * d + 4 * b * h * s
+def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
+    """Least time on this card in ms: the larger of the operations over
+    the peak rate for the input type and the bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def folded_inputs(torch, gen, s, heads, kv, d, dtype):
-    """The main path's flash inputs for one [1, S, H, D] layer, in the
-    kernel's folded layout: q [KV, G*S, D], k/v [KV, S, D]."""
-    q = torch.randn((kv, (heads // kv) * s, d), generator=gen,
+def attention_bound(b, s, h, kv, d, dtype_name: str) -> tuple[float, str]:
+    """Causal attention forward: 2*B*H*D*S^2 operations (the causal half
+    of QK^T and PV); q, k, v read once, o and the f32 lse written once."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    return bound(2.0 * b * h * d * s * s,
+                 elt * b * s * (2 * h + 2 * kv) * d + 4 * b * h * s,
+                 dtype_name)
+
+
+def attention_bwd_bound(kernel: str, b, s, h, kv, d,
+                        dtype_name: str) -> tuple[float, str]:
+    """The backward kernels: each causal-half product is B*H*D*S^2
+    operations, three for dQ (QK^T, dO V^T, dS K) and four for dK/dV
+    (QK^T, dO V^T, P^T dO, dS^T Q).  Both read q, o, dO (H-sized), k, v
+    (KV-sized) and the f32 lse once; dQ writes dq, dK/dV writes dk, dv."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    products, out_heads = (3, h) if kernel == "flash_bwd_dq" else (4, 2 * kv)
+    nbytes = (elt * b * s * d * (3 * h + 2 * kv + out_heads)
+              + 4 * b * h * s)
+    return bound(products * b * h * d * s * s, nbytes, dtype_name)
+
+
+# bytes per element of each update (each operand read once, each output
+# written once): sgd p, g -> p'; momentum p, g, v -> p', v'; adam p, g, m,
+# v -> p', m', v'; and f32 operations per element (adam: 3 for m, 4 for v,
+# 7 for the step with its sqrt and three divisions)
+UPDATE_BYTES = {"sgd": 12, "momentum": 20, "adam": 28}
+UPDATE_FLOPS = {"sgd": 2, "momentum": 4, "adam": 14}
+
+
+def folded_inputs(torch, gen, b, s, heads, kv, d, dtype):
+    """The main path's flash inputs for a [B, S, H, D] layer, in the
+    kernels' folded layout: q [B*KV, G*S, D], k/v [B*KV, S, D]."""
+    q = torch.randn((b * kv, (heads // kv) * s, d), generator=gen,
                     device="cuda", dtype=dtype)
-    k, v = (torch.randn((kv, s, d), generator=gen, device="cuda",
+    k, v = (torch.randn((b * kv, s, d), generator=gen, device="cuda",
                         dtype=dtype) for _ in range(2))
     return q, k, v
 
 
-def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, PACKAGE)):
-        fail(f"{PACKAGE}/ is not beside this script")
-    import numpy as np
-    import torch
-    import torch.nn.functional as F
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this smoke run needs a "
-             "CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    sys.path.insert(0, HERE)
-    from parameter_server_distributed_tpu_torch.models import serving
-    from parameter_server_distributed_tpu_torch.models.generation import \
-        generate
-    from parameter_server_distributed_tpu_torch.models.registry import \
-        get_model
-    from parameter_server_distributed_tpu_torch.models.transformer import (
-        Transformer, TransformerConfig, causal_attention,
-        flash_attention_auto)
-    from parameter_server_distributed_tpu_torch.ops import build
-    from parameter_server_distributed_tpu_torch.ops import \
-        flash_attention as fa
-
-    # ---- 1. device
-    smi = nvidia_smi()
-    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": smi,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
-    print(smi, flush=True)
-
-    # ---- 2. build every kernel source, all nvcc processes at once
-    t0 = time.perf_counter()
-    seconds = build.build(build.SOURCES)
-    ptxas = {name: [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
-             for name, log in build.BUILD_LOGS.items()}
-    emit({"phase": "build", "seconds": seconds,
-          "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
-
-    # ---- 3. kernel against its plain version, at the main path's shapes
-    gen = torch.Generator(device="cuda").manual_seed(0)
+def check_flash_fwd(torch, fa, gen) -> float:
+    """flash_fwd against its plain version at the serving shapes, MHA,
+    D=128 and f32; returns the largest |o| error."""
     cases = [(s, LLAMA["heads"], LLAMA["kv"], 64, torch.bfloat16)
              for s in (128, 512, 2048)]
     cases += [(512, 16, 16, 64, torch.bfloat16),     # MHA
@@ -142,7 +140,7 @@ def main() -> int:
               (256, 8, 8, 128, torch.float32)]
     max_err = 0.0
     for s, heads, kv, d, dtype in cases:
-        q, k, v = folded_inputs(torch, gen, s, heads, kv, d, dtype)
+        q, k, v = folded_inputs(torch, gen, 1, s, heads, kv, d, dtype)
         with torch.inference_mode():
             o, lse = fa._flash_fwd(q, k, v, 128, 128, s // 128)
             torch.cuda.synchronize()
@@ -169,12 +167,121 @@ def main() -> int:
                  f"S={s} H={heads} KV={kv} D={d} {dtype}: |do| {d_o}, "
                  f"rel |dlse| {d_lse}")
         max_err = max(max_err, d_o)
+    return max_err
 
-    # ---- 4. times at the llama_350m prefill shapes
+
+def bwd_inputs(torch, fa, gen, b, s, heads, kv, d, dtype):
+    """(q, k, v, o, lse, dO) for the backward kernels: o and lse from the
+    f32 plain forward, o rounded to the input type."""
+    q, k, v = folded_inputs(torch, gen, b, s, heads, kv, d, dtype)
+    g = torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd_reference(q.float(), k.float(), v.float(), s)
+    return q, k, v, o.to(dtype), lse, g
+
+
+def check_flash_bwd(torch, fa, gen) -> dict[str, float]:
+    """dQ and dK/dV against flash_bwd_reference on the same inputs: the
+    llama_350m training shape, MHA, D=128, f32, and segments that are not
+    a multiple of the 64-row tile.  f32 within rtol 5e-4, atol 1e-5 (the
+    reference's gradient tolerance); bf16 within rtol 1e-2, atol 1e-3 of
+    the f32 plain result on the same bf16 inputs (each output is rounded
+    once to bf16).  Returns each kernel's largest absolute error."""
+    b, heads, kv, d = TRAIN["batch"], LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+    cases = [(b, TRAIN["seq"], heads, kv, d, torch.bfloat16),
+             (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
+             (2, 512, 8, 2, 128, torch.bfloat16),      # D=128, G=4
+             (2, 256, 16, 4, 64, torch.float32),
+             (1, 200, 6, 2, 128, torch.float32)]        # S % 64 != 0
+    max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for b_, s, h, kv_, d_, dtype in cases:
+        q, k, v, o, lse, g = bwd_inputs(torch, fa, gen, b_, s, h, kv_, d_,
+                                        dtype)
+        block = next(x for x in (128, 64, 8) if s % x == 0)
+        with torch.inference_mode():
+            got = fa._flash_bwd(q, k, v, o, lse, g, block, block,
+                                s // block)
+            torch.cuda.synchronize()
+            ref = fa.flash_bwd_reference(*(x.float() for x in (q, k, v, o)),
+                                         lse, g.float(), s)
+        rtol, atol = (5e-4, 1e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+        errs, ok = {}, True
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            if a.shape != r.shape or a.dtype != dtype:
+                fail(f"flash_bwd {name} {tuple(a.shape)} {a.dtype}")
+            diff = (a.float() - r).abs()
+            errs[name] = float(diff.max())
+            ok = ok and bool((diff <= atol + rtol * r.abs()).all())
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_bwd_dq+dkv",
+              "batch": b_, "seq": s, "heads": h, "kv_heads": kv_,
+              "head_dim": d_, "dtype": str(dtype).split(".")[-1],
+              "max_abs_err": errs, "rtol": rtol, "atol": atol, "ok": ok})
+        if not ok or not all(math.isfinite(e) for e in errs.values()):
+            fail(f"flash backward disagrees with its plain version at "
+                 f"B={b_} S={s} H={h} KV={kv_} D={d_} {dtype}: {errs}")
+        max_err["flash_bwd_dq"] = max(max_err["flash_bwd_dq"], errs["dq"])
+        max_err["flash_bwd_dkv"] = max(max_err["flash_bwd_dkv"], errs["dk"],
+                                       errs["dv"])
+    return max_err
+
+
+def llama_store(torch, shapes, gen, abs_=False):
+    return {name: (lambda x: x.abs() if abs_ else x)(
+        torch.randn(shape, generator=gen, device="cuda"))
+        for name, shape in shapes.items()}
+
+
+def check_updates(torch, fu, shapes, gen) -> dict[str, float]:
+    """Each update kernel against its plain version over the full
+    llama_350m store (219 f32 tensors), slots included, within rtol 1e-5,
+    atol 1e-7 (the reference's tolerance).  Returns each kernel's largest
+    absolute error."""
+    p, g = llama_store(torch, shapes, gen), llama_store(torch, shapes, gen)
+    max_err = {}
+    for rule in ("sgd", "momentum", "adam"):
+        slots = [llama_store(torch, shapes, gen, abs_=(i == 1))
+                 for i in range({"sgd": 0, "momentum": 1, "adam": 2}[rule])]
+        ref_slots = [{n: x.clone() for n, x in s.items()} for s in slots]
+        with torch.inference_mode():
+            if rule == "sgd":
+                out = fu.fused_sgd(p, g, 0.1)
+                ref = {n: fu.sgd_reference(p[n], g[n], 0.1) for n in p}
+            elif rule == "momentum":
+                out, _ = fu.fused_momentum(p, g, slots[0], 0.1, 0.9)
+                ref = {n: fu.momentum_reference(p[n], g[n], ref_slots[0][n],
+                                                0.1, 0.9) for n in p}
+            else:
+                out = fu.fused_adam(p, g, slots[0], slots[1], 3, 1e-3)[0]
+                bc = fu.bias_corrections(3, 0.9, 0.999)
+                ref = {n: fu.adam_reference(p[n], g[n], ref_slots[0][n],
+                                            ref_slots[1][n], 1e-3, 0.9,
+                                            0.999, 1e-8, *bc) for n in p}
+            torch.cuda.synchronize()
+        pairs = [(out[n], ref[n]) for n in p] + [
+            (s[n], r[n]) for s, r in zip(slots, ref_slots) for n in p]
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        ok = all(bool(torch.isclose(a, b, rtol=1e-5, atol=1e-7).all())
+                 for a, b in pairs)
+        exact = all(bool(torch.equal(a, b)) for a, b in pairs)
+        emit({"phase": "kernel_vs_plain", "kernel": f"fused_{rule}",
+              "tensors": len(p), "elements": sum(x.numel()
+                                                 for x in p.values()),
+              "max_abs_err": err, "bit_exact": exact, "rtol": 1e-5,
+              "atol": 1e-7, "ok": ok})
+        if not ok or not math.isfinite(err):
+            fail(f"fused_{rule} disagrees with its plain version: {err}")
+        max_err[f"fused_{rule}"] = err
+    return max_err
+
+
+def time_flash_fwd(torch, F, fa, gen) -> dict:
+    """flash_fwd at the llama_350m prefill shapes, beside the plain
+    version, SDPA and the bound."""
     timing = {}
     for s in (256, 512, 1024, 2048):
         heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
-        q, k, v = folded_inputs(torch, gen, s, heads, kv, d, torch.bfloat16)
+        q, k, v = folded_inputs(torch, gen, 1, s, heads, kv, d,
+                                torch.bfloat16)
         # SDPA (the yardstick; the port never calls it) on the same
         # inputs in its [B, H, S, D] layout: query head h = kv_head * G +
         # group reads kv head h // G, as enable_gqa does; and once more on
@@ -196,24 +303,205 @@ def main() -> int:
                 q, k, v, 128, 128, s // 128))
             plain2 = cuda_ms(torch, lambda: fa.flash_fwd_reference(
                 q, k, v, s), iters=5)
-        bound, bound_by = attention_bound(1, s, heads, kv, d, "bfloat16")
+        bound_ms, bound_by = attention_bound(1, s, heads, kv, d, "bfloat16")
         timing[s] = dict(ms=min(kernel, kernel2), plain_ms=min(plain, plain2),
-                         library_ms=library, bound_ms=bound,
+                         library_ms=library, bound_ms=bound_ms,
                          bound_by=bound_by)
         emit({"phase": "times", "kernel": "flash_fwd", "seq": s,
               "heads": heads, "kv_heads": kv, "head_dim": d,
               "dtype": "bfloat16", "ms_runs": [kernel, kernel2],
               "plain_ms_runs": [plain, plain2],
-              "library_expanded_kv_ms": library_x, **timing[s],
-              "launches_so_far": fa.launches})
+              "library_expanded_kv_ms": library_x, **timing[s]})
+    return timing
 
-    # ---- 5. serving: full-width llama_350m through DecodeServer
-    os.environ["PSDT_FLASH_ATTENTION"] = "1"
+
+def time_flash_train(torch, F, fa, gen) -> dict:
+    """The three flash kernels at the llama_350m training shape (B=8,
+    S=1024, H=16, KV=4, D=64, bf16), beside the plain versions, the bound
+    and SDPA (forward; and its backward through autograd, which computes
+    dq, dk and dv in one call, so it stands beside both backward
+    kernels).  The plain backward computes dq, dk and dv in one pass too:
+    its time stands beside both."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+    q, k, v, o, lse, g = bwd_inputs(torch, fa, gen, b, s, heads, kv, d,
+                                    torch.bfloat16)
+    grp = heads // kv
+    # SDPA layout [B, H, S, D] over the same memory: folded row
+    # (b*KV + kv, g*S + s) is query head kv*G + g, as enable_gqa reads
+    q_l = q.reshape(b, kv * grp, s, d).detach().requires_grad_()
+    k_l = k.reshape(b, kv, s, d).detach().requires_grad_()
+    v_l = v.reshape(b, kv, s, d).detach().requires_grad_()
+    g_l = g.reshape(b, kv * grp, s, d)
+    out_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=True,
+                                           enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out_l, (q_l, k_l, v_l), g_l,
+                                   retain_graph=True)
+
+    args = (q, k, v, o, lse, g, s)
+    with torch.inference_mode():
+        plain_f = cuda_ms(torch, lambda: fa.flash_fwd_reference(q, k, v, s),
+                          iters=3)
+        plain_b = cuda_ms(torch, lambda: fa.flash_bwd_reference(*args),
+                          iters=3)
+        fwd = [cuda_ms(torch, lambda: fa._flash_fwd(q, k, v, 128, 128,
+                                                    s // 128))]
+        dq = [cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(*args))]
+        dkv = [cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(*args))]
+        lib_f = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q_l, k_l, v_l, is_causal=True, enable_gqa=True))
+    lib_b = cuda_ms(torch, sdpa_bwd)
+    with torch.inference_mode():
+        fwd.append(cuda_ms(torch, lambda: fa._flash_fwd(q, k, v, 128, 128,
+                                                        s // 128)))
+        dq.append(cuda_ms(torch, lambda: fa._flash_bwd_dq_cuda(*args)))
+        dkv.append(cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(*args)))
+        plain_b2 = cuda_ms(torch, lambda: fa.flash_bwd_reference(*args),
+                           iters=3)
+    out = {}
+    for name, runs, plain, lib in (
+            ("flash_fwd", fwd, plain_f, lib_f),
+            ("flash_bwd_dq", dq, min(plain_b, plain_b2), lib_b),
+            ("flash_bwd_dkv", dkv, min(plain_b, plain_b2), lib_b)):
+        if name == "flash_fwd":
+            bound_ms, bound_by = attention_bound(b, s, heads, kv, d,
+                                                 "bfloat16")
+        else:
+            bound_ms, bound_by = attention_bwd_bound(name, b, s, heads, kv,
+                                                     d, "bfloat16")
+        out[name] = dict(ms=min(runs), plain_ms=plain, library_ms=lib,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "times", "kernel": name, "batch": b, "seq": s,
+              "heads": heads, "kv_heads": kv, "head_dim": d,
+              "dtype": "bfloat16", "ms_runs": runs, **out[name],
+              "library": ("SDPA forward" if name == "flash_fwd" else
+                          "SDPA backward (autograd, dq+dk+dv)")})
+    return out
+
+
+def time_updates(torch, fu, shapes, gen) -> dict:
+    """Each update over the full llama_350m store (one launch per tensor),
+    beside the plain version, the bound and torch.optim's fused
+    optimizer over the same tensor list (Adam, SGD, SGD with momentum)."""
+    n = sum(math.prod(s) for s in shapes.values())
+    out = {}
+    for rule in ("sgd", "momentum", "adam"):
+        p, g = llama_store(torch, shapes, gen), llama_store(torch, shapes, gen)
+        slots = [llama_store(torch, shapes, gen, abs_=(i == 1))
+                 for i in range({"sgd": 0, "momentum": 1, "adam": 2}[rule])]
+        names = list(p)
+        if rule == "sgd":
+            def kernel():
+                return fu.fused_sgd(p, g, 1e-3)
+
+            def plain():
+                return [fu.sgd_reference(p[x], g[x], 1e-3) for x in names]
+        elif rule == "momentum":
+            def kernel():
+                return fu.fused_momentum(p, g, slots[0], 1e-3, 0.9)
+
+            def plain():
+                return [fu.momentum_reference(p[x], g[x], slots[0][x], 1e-3,
+                                              0.9) for x in names]
+        else:
+            bc = fu.bias_corrections(3, 0.9, 0.999)
+
+            def kernel():
+                return fu.fused_adam(p, g, slots[0], slots[1], 3, 1e-3)
+
+            def plain():
+                return [fu.adam_reference(p[x], g[x], slots[0][x],
+                                          slots[1][x], 1e-3, 0.9, 0.999,
+                                          1e-8, *bc) for x in names]
+        with torch.inference_mode():
+            plain1 = cuda_ms(torch, plain, iters=3)
+            runs = [cuda_ms(torch, kernel, iters=10)]
+        # torch.optim's fused step (the yardstick; the port never calls
+        # it) on copies of the same params with the same grads
+        params = [torch.nn.Parameter(p[x].clone()) for x in names]
+        for param, x in zip(params, names):
+            param.grad = g[x]
+        opt = (torch.optim.Adam(params, lr=1e-3, fused=True)
+               if rule == "adam" else
+               torch.optim.SGD(params, lr=1e-3, fused=True,
+                               momentum=0.9 if rule == "momentum" else 0.0))
+        library = cuda_ms(torch, opt.step, iters=10)
+        del opt, params
+        with torch.inference_mode():
+            runs.append(cuda_ms(torch, kernel, iters=10))
+            plain2 = cuda_ms(torch, plain, iters=3)
+            # the kernels' own device time in one apply (the event time
+            # above also holds the host's per-tensor launch gaps)
+            device_ms = profile_window(torch, kernel, {
+                "k": "update_kernel"})["group_ms"]
+        bound_ms, bound_by = bound(UPDATE_FLOPS[rule] * n,
+                                   UPDATE_BYTES[rule] * n, "float32")
+        out[f"fused_{rule}"] = dict(ms=min(runs), plain_ms=min(plain1, plain2),
+                                    library_ms=library, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+        emit({"phase": "times", "kernel": f"fused_{rule}",
+              "tensors": len(names), "elements": n, "ms_runs": runs,
+              "plain_ms_runs": [plain1, plain2],
+              "device_ms": device_ms["k"] if device_ms else None,
+              "library": f"torch.optim.{'Adam' if rule == 'adam' else 'SGD'}"
+                         f"(fused=True)", **out[f"fused_{rule}"]})
+        del p, g, slots
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_window(torch, fn, names: dict[str, str]) -> dict:
+    """Run ``fn`` under torch.profiler; kernel time summed by name, the
+    device busy share (kernel time / the window's wall time) and the time
+    of each group in ``names`` (group -> substring of kernel names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t1
+    by_name: dict[str, list] = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            entry = by_name.setdefault(evt.name, [0.0, 0])
+            entry[0] += evt.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    groups = {group: [sum(x[i] for name, x in by_name.items() if key in name)
+                      for i in (0, 1)] for group, key in names.items()}
+    return {"window_s": window,
+            "kernel_ms": busy_ms if by_name else None,
+            "device_busy_share": busy_ms / 1e3 / window if by_name else None,
+            "group_ms": ({g: ms for g, (ms, _) in groups.items()}
+                         if by_name else None),
+            "group_events": ({g: n for g, (_, n) in groups.items()}
+                             if by_name else None),
+            "top": [[name[:80], ms, n] for name, (ms, n) in top[:12]]}
+
+
+def serve(torch, np, fa, rng) -> dict:
+    """The serving path: llama_350m through DecodeServer, its profiled
+    window, flash-vs-dense logits, f32 server-vs-generate and the CLI.
+    Returns the path's flash_fwd launch count."""
+    from parameter_server_distributed_tpu_torch.models import serving
+    from parameter_server_distributed_tpu_torch.models.generation import \
+        generate
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, causal_attention,
+        flash_attention_auto)
+
     model = get_model("llama_350m", dtype="bf16")
     if model.attention_fn is not flash_attention_auto:
         fail("PSDT_FLASH_ATTENTION=1 did not select the flash kernel")
     params = model.init_params(0, device="cuda")
-    rng = np.random.default_rng(0)
     prompts = [rng.integers(0, model.config.vocab, n).tolist()
                for n in PROMPT_LENS]
     srv = serving.DecodeServer(model, params, slots=8, max_len=2048,
@@ -244,7 +532,7 @@ def main() -> int:
     results = srv.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    main_launches = fa.launches
+    launches = dict(fa.launches)
     prefills = len(prompts)
     tokens = sum(len(results[r]) for r in rids)
     vocab = model.config.vocab
@@ -258,44 +546,27 @@ def main() -> int:
           "prefill_s": prefill_s, "decode_rounds": len(gaps),
           "gap_p50_s": float(np.median(gaps)), "gap_max_s": max(gaps),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "flash_launches": main_launches,
-          "expected_launches": LLAMA["layers"] * prefills,
+          "flash_launches": launches,
+          "expected_launches": {"flash_fwd": LLAMA["layers"] * prefills},
           "stats": srv.stats})
     if len(results) != prefills or any(
             len(results[r]) != NEW_TOKENS
             or not all(0 <= t < vocab for t in results[r]) for r in rids):
         fail("serving did not answer every request with in-vocab tokens")
-    if main_launches != LLAMA["layers"] * prefills:
-        fail(f"flash launches {main_launches} != 24 x {prefills} prefills")
+    if launches != {"flash_fwd": LLAMA["layers"] * prefills,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        fail(f"serving flash launches {launches} != 24 x {prefills} "
+             f"prefills of flash_fwd")
 
     # where the device time goes: one profiled request at the largest
     # bucket (prefill of 1200 tokens in a 2048 bucket, then 7 decode
-    # rounds), kernels summed by name.  Device busy share = kernel time /
-    # the window's wall time.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
+    # rounds)
+    def one_request():
         srv.submit(prompts[-1], max_new_tokens=8)
         srv.run_to_completion()
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t1
-    by_name: dict[str, list] = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(evt.name, [0.0, 0])
-            entry[0] += evt.time_range.elapsed_us() / 1e3
-            entry[1] += 1
-    busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    emit({"phase": "profile", "window_s": window,
-          "kernel_ms": busy_ms if by_name else None,
-          "device_busy_share": busy_ms / 1e3 / window if by_name else None,
-          "flash_ms": sum(ms for name, (ms, _) in by_name.items()
-                          if "flash_fwd" in name) if by_name else None,
-          "top": [[name[:80], ms, n] for name, (ms, n) in top[:8]]})
+
+    emit({"phase": "profile", **profile_window(
+        torch, one_request, {"flash_ms": "flash_fwd"})})
 
     # llama_350m prefill logits: flash against dense attention, one prompt
     dense = Transformer(model.config, attention_fn=causal_attention)
@@ -324,12 +595,12 @@ def main() -> int:
     sres = ssrv.run_to_completion()
     exact = [sres[r] == generate(small, sparams, [p], 8)[0].tolist()
              for r, p in zip(srids, sprompts)]
-    emit({"phase": "serve_vs_generate_f32", "model": "2-layer f32, head_dim 64",
-          "token_exact": exact})
+    emit({"phase": "serve_vs_generate_f32",
+          "model": "2-layer f32, head_dim 64", "token_exact": exact})
     if not all(exact):
         fail("f32 DecodeServer streams differ from generate")
 
-    # ---- 6. the CLI: 2 JSONL requests through serve_main
+    # the CLI: 2 JSONL requests through serve_main
     reqs = [{"id": 1, "tokens": prompts[1], "max_new": 8},
             {"id": 2, "prompt": "The parameter server " * 10, "max_new": 8}]
     env = dict(os.environ, PYTHONPATH=HERE, PSDT_FLASH_ATTENTION="1")
@@ -353,18 +624,232 @@ def main() -> int:
     if proc.returncode != 0 or sorted(d["id"] for d in done) != [1, 2]:
         fail(f"serve_main answered {len(done)} of 2 requests "
              f"(exit {proc.returncode})")
+    return launches["flash_fwd"]
 
-    # ---- 7. kernels line
-    main_t = timing[2048]
-    kernels = [{"name": "flash_fwd", "route": "cuda",
-                "source": f"{PACKAGE}/csrc/flash_fwd.cu",
-                "replaces": "parameter_server_distributed_tpu/ops/pallas/"
-                            "flash_attention.py:86",
-                "launches": main_launches, "max_abs_err": max_err,
-                "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
-                "bound_ms": main_t["bound_ms"],
-                "bound_by": main_t["bound_by"],
-                "library_ms": main_t["library_ms"]}]
+
+def model_flops_per_step(model, batch: int, seq: int) -> float:
+    """6*N*T over the matmul parameters (every 2-D weight but embed/tok)
+    plus 6*B*H*D*S^2 per layer for causal attention; no remat recompute."""
+    c = model.config
+    n_mm = sum(math.prod(s) for name, s in model.param_shapes().items()
+               if len(s) == 2 and name != "embed/tok")
+    return (6.0 * n_mm * batch * seq
+            + 6.0 * batch * c.n_heads * c.head_dim * seq * seq * c.n_layers)
+
+
+def train(torch, np, fa, fu) -> dict:
+    """The training path: full-width llama_350m, 5 worker steps and Adam
+    applies on one batch, then one sgd and one momentum apply; then one
+    profiled step, and a 2-layer f32 model's gradients through the kernels
+    against dense attention.  Returns the path's launch counts."""
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import PallasOptimizer
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model_and_batches
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, causal_attention,
+        flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
+
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    model, batches = get_model_and_batches("llama_350m", b, seed=0,
+                                           dtype="bf16")
+    c = model.config
+    if model.attention_fn is not flash_attention_auto or not c.remat or \
+            c.remat_policy != "full" or c.loss_chunk != 128:
+        fail(f"llama_350m training config: attention "
+             f"{model.attention_fn.__name__}, remat {c.remat} "
+             f"{c.remat_policy}, loss_chunk {c.loss_chunk}")
+    batch = next(batches)
+    trainer = Trainer(model)
+    store = trainer.init_params(0)
+    n_tensors = len(store)
+    opt = PallasOptimizer("adam", TRAIN["lr"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fu.reset_launches()
+    params, losses, grad_s, apply_s = store, [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        grads, loss = trainer.compute_gradients(params, batch)
+        t1 = time.perf_counter()       # the loss and grads are on the host
+        params = opt.apply(params, grads)
+        torch.cuda.synchronize()
+        apply_s.append(time.perf_counter() - t1)
+        grad_s.append(t1 - t0)
+        losses.append(loss)
+    other_s = {}
+    for rule in ("sgd", "momentum"):
+        t0 = time.perf_counter()
+        PallasOptimizer(rule, TRAIN["lr"]).apply(params, grads)
+        torch.cuda.synchronize()
+        other_s[rule] = time.perf_counter() - t0
+    launches = {**fa.launches, **fu.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"flash_fwd": 2 * c.n_layers * steps,    # remat recompute
+                "flash_bwd_dq": c.n_layers * steps,
+                "flash_bwd_dkv": c.n_layers * steps,
+                "fused_sgd": n_tensors, "fused_momentum": n_tensors,
+                "fused_adam": n_tensors * steps}
+    # steady state: the steps after the first (which uploads the host
+    # store and warms the allocator and the GEMM heuristics)
+    step_s = float(np.median([g + a for g, a in zip(grad_s[1:],
+                                                    apply_s[1:])]))
+    grad_med = float(np.median(grad_s[1:]))
+    flops = model_flops_per_step(model, b, s)
+    emit({"phase": "train", "model": "llama_350m", "dtype": "bfloat16",
+          "params": model.num_params(), "tensors": n_tensors,
+          "batch": b, "seq": s, "remat": c.remat_policy,
+          "loss_chunk": c.loss_chunk, "optimizer": "adam",
+          "lr": TRAIN["lr"], "losses": losses, "grad_step_s": grad_s,
+          "apply_s": apply_s, "sgd_apply_s": other_s["sgd"],
+          "momentum_apply_s": other_s["momentum"],
+          "step_s_median": step_s, "grad_step_s_median": grad_med,
+          "tokens_per_s": b * s / step_s, "peak_mem_gb": peak,
+          "model_flops_per_step": flops, "mfu": flops / (step_s * 989e12),
+          "mfu_grad_step": flops / (grad_med * 989e12),
+          "launches": launches, "expected_launches": expected})
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"llama_350m losses not finite and falling: {losses}")
+    if launches != expected:
+        fail(f"training launches {launches} != expected {expected}")
+
+    # one profiled round (worker step + Adam apply) on card-resident
+    # params, kernels summed by name
+    def one_step():
+        g_, _ = trainer.compute_gradients(params, batch)
+        opt.apply(params, g_)
+
+    prof = profile_window(torch, one_step, {
+        "flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+        "flash_bwd_dkv": "flash_bwd_dkv", "fused_adam": "Adam",
+        "gemm": "gemm", "nvjet": "nvjet", "dtoh": "Memcpy DtoH",
+        "htod": "Memcpy HtoD"})
+    emit({"phase": "train_profile", **prof})
+    # the host round trips of a step on card-resident params: one packed
+    # gradient download, and the apply's uploads of the host gradients
+    if prof["group_events"] and prof["group_events"]["dtoh"] != 1:
+        fail(f"a training step made {prof['group_events']['dtoh']} "
+             f"device-to-host copies, not 1")
+    del params, grads, store, opt, trainer
+    torch.cuda.empty_cache()
+
+    # a 2-layer f32 model (head_dim 64, remat, chunked loss): gradients
+    # through the kernels against dense attention, the same f32
+    # arithmetic in another order, within rtol 1e-3, atol 1e-5
+    cfg = TransformerConfig(vocab=1024, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, max_seq=256,
+                            mlp_act="swiglu", dtype=torch.float32,
+                            remat=True, loss_chunk=128)
+    flash_t = Trainer(Transformer(cfg, attention_fn=flash_attention_auto))
+    dense_t = Trainer(Transformer(cfg, attention_fn=causal_attention))
+    small = flash_t.init_params(2)
+    tok = np.random.default_rng(3).integers(0, 1024, (4, 256),
+                                            dtype=np.int32)
+    gf, lf = flash_t.compute_gradients(small, tok)
+    gd, ld = dense_t.compute_gradients(small, tok)
+    worst = max(float(np.max(np.abs(gf[n] - gd[n]))
+                      / max(float(np.max(np.abs(gd[n]))), 1e-30))
+                for n in gd)
+    ok = all(np.allclose(gf[n], gd[n], rtol=1e-3, atol=1e-5) for n in gd)
+    emit({"phase": "train_flash_vs_dense_f32",
+          "model": "2-layer f32, head_dim 64", "loss_flash": lf,
+          "loss_dense": ld, "max_rel_grad_diff": worst, "rtol": 1e-3,
+          "atol": 1e-5, "ok": ok})
+    if not ok or abs(lf - ld) > 1e-5 * abs(ld):
+        fail(f"f32 flash gradients off dense (worst {worst}, loss "
+             f"{lf} vs {ld})")
+    return launches
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, PACKAGE)):
+        fail(f"{PACKAGE}/ is not beside this script")
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a "
+             "CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, HERE)
+    from parameter_server_distributed_tpu_torch.models.transformer import \
+        llama_350m
+    from parameter_server_distributed_tpu_torch.ops import build
+    from parameter_server_distributed_tpu_torch.ops import \
+        flash_attention as fa
+    from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+
+    t_start = time.perf_counter()
+    # ---- device
+    smi = nvidia_smi()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    print(smi, flush=True)
+
+    # ---- build every kernel source, all nvcc processes at once
+    t0 = time.perf_counter()
+    seconds = build.build(build.SOURCES)
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, log in build.BUILD_LOGS.items()}
+    emit({"phase": "build", "seconds": seconds,
+          "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+
+    # ---- every kernel against its plain version, then timed
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = llama_350m().param_shapes()
+    max_err = {"flash_fwd": check_flash_fwd(torch, fa, gen),
+               **check_flash_bwd(torch, fa, gen),
+               **check_updates(torch, fu, shapes, gen)}
+    torch.cuda.empty_cache()
+    serve_t = time_flash_fwd(torch, F, fa, gen)
+    train_t = time_flash_train(torch, F, fa, gen)
+    update_t = time_updates(torch, fu, shapes, gen)
+    emit({"phase": "kernels_checked", "elapsed_s":
+          time.perf_counter() - t_start})
+
+    # ---- the two paths, each with its own launch count
+    os.environ["PSDT_FLASH_ATTENTION"] = "1"
+    rng = np.random.default_rng(0)
+    serve_fwd = serve(torch, np, fa, rng)
+    torch.cuda.empty_cache()
+    emit({"phase": "served", "elapsed_s": time.perf_counter() - t_start})
+    train_launches = train(torch, np, fa, fu)
+
+    # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
+    # B=1), the others at the training shapes; launches from the main
+    # paths' runs
+    launches = dict(train_launches)
+    launches["flash_fwd"] = serve_fwd + train_launches["flash_fwd"]
+    times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
+                                            if k != "flash_fwd"}, **update_t}
+    sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:86"),
+               "flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:162"),
+               "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:202"),
+               "fused_sgd": ("fused_update.cu", "fused_update.py:42"),
+               "fused_momentum": ("fused_update.cu", "fused_update.py:46"),
+               "fused_adam": ("fused_update.cu", "fused_update.py:53")}
+    kernels = []
+    for name, (src, tpu) in sources.items():
+        t = times[name]
+        entry = {"name": name, "route": "cuda",
+                 "source": f"{PACKAGE}/csrc/{src}",
+                 "replaces": PALLAS + tpu, "launches": launches[name],
+                 "max_abs_err": max_err[name], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if name == "flash_fwd":
+            entry["launches_by_path"] = {
+                "serve": serve_fwd, "train": train_launches["flash_fwd"]}
+        kernels.append(entry)
+    if any(k["launches"] <= 0 for k in kernels):
+        fail(f"a kernel of the main paths never launched: {launches}")
+    emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

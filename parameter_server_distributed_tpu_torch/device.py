@@ -17,10 +17,17 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def same_device(where: torch.device, device: torch.device) -> bool:
+    """True when ``where`` is ``device``; a ``device`` with no index (as
+    :func:`resolve_device` returns for the card) matches every index of
+    its type, so a tensor on ``cuda:0`` lies on ``cuda``."""
+    return where.type == device.type and (device.index is None
+                                          or where.index == device.index)
+
+
 def check_on_device(params, device: torch.device) -> None:
     """Raise unless every tensor of a parameter store lies on ``device``."""
     for name, value in params.items():
-        if value.device.type != device.type or (
-                device.index is not None and value.device != device):
+        if not same_device(value.device, device):
             raise ValueError(f"parameter {name!r} lies on {value.device}, "
                              f"not on {device}")

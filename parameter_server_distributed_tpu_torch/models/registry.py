@@ -1,14 +1,20 @@
-"""Model registry, LM rows: name -> transformer factory (the LM part of
+"""Model registry, LM rows: name -> transformer factory and its synthetic
+token stream (the LM part of
 parameter_server_distributed_tpu/models/registry.py)."""
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
+from ..data.synthetic import synthetic_tokens
 from .transformer import Transformer, llama_350m, lm_350m, small_lm, tiny_lm
+
+# file- and text-backed token data (data/files.py, data/text.py
+# text_stream) are not ported yet
+ROADMAP_DATA = "ROADMAP.md Queue 1, item 2 (file-backed token data)"
 
 REGISTRY: dict[str, Callable[..., Transformer]] = {
     "small_lm": partial(small_lm, vocab=1024, seq=256),
@@ -22,6 +28,9 @@ REGISTRY: dict[str, Callable[..., Transformer]] = {
     "llama_350m": llama_350m,
 }
 
+# the flagships take remat_policy; the test-scale LMs do not
+_REMAT_POLICY = ("lm_350m", "lm_350m_gqa", "lm_350m_hd128", "llama_350m")
+
 DTYPE_NAMES = {"f32": torch.float32, "float32": torch.float32,
                "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
@@ -33,10 +42,45 @@ def resolve_dtype(name: str) -> torch.dtype:
     return DTYPE_NAMES[name]
 
 
-def get_model(name: str, dtype: str = "") -> Transformer:
-    """Build a registry LM; ``dtype`` ("f32"/"bf16", empty = the
-    factory's default) overrides the weight and activation type."""
+def get_model(name: str, dtype: str = "", remat: bool | None = None,
+              scan: bool | None = None, seq_len: int = 0,
+              remat_policy: str = "") -> Transformer:
+    """Build a registry LM.  ``dtype`` ("f32"/"bf16"), ``remat``,
+    ``scan`` (the stacked layout), ``seq_len`` and ``remat_policy``
+    override the factory's defaults where given (empty / None = keep)."""
     if name not in REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(REGISTRY)}")
-    kwargs = {"dtype": resolve_dtype(dtype)} if dtype else {}
+    kwargs: dict = {"dtype": resolve_dtype(dtype)} if dtype else {}
+    if remat is not None:
+        kwargs["remat"] = remat
+    if scan is not None:
+        kwargs["scan_layers"] = scan
+    if seq_len:
+        kwargs["seq"] = seq_len
+    if remat_policy:
+        if name not in _REMAT_POLICY:
+            raise ValueError(f"model {name!r} does not support "
+                             f"remat_policy (flagship transformer LMs only)")
+        kwargs["remat_policy"] = remat_policy
     return REGISTRY[name](**kwargs)
+
+
+def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
+                          data_path: str = "", dtype: str = "",
+                          remat: bool | None = None,
+                          scan: bool | None = None, seq_len: int = 0,
+                          remat_policy: str = "", device=None
+                          ) -> tuple[Transformer, Iterator[torch.Tensor]]:
+    """(model, batch iterator): the model from :func:`get_model` and the
+    registry's synthetic token stream at the model's (vocab, max_seq), on
+    ``device`` (default: the card).  The flagships stream batch x 1024
+    tokens of a 32000 vocab, the test-scale LMs batch x 256 of 1024, as
+    the JAX registry's ``_lm_350m_batches`` and ``_lm_batches`` do."""
+    if data_path:
+        raise NotImplementedError(f"file-backed data ({data_path!r}): "
+                                  f"{ROADMAP_DATA}")
+    model = get_model(name, dtype, remat, scan, seq_len, remat_policy)
+    batches = synthetic_tokens(batch_size, seq_len=model.config.max_seq,
+                               vocab=model.config.vocab, seed=seed,
+                               device=device)
+    return model, batches

@@ -1,5 +1,5 @@
-"""Decoder-only Transformer LM, forward path, in PyTorch: the port of
-parameter_server_distributed_tpu/models/transformer.py.
+"""Decoder-only Transformer LM, forward and training loss, in PyTorch: the
+port of parameter_server_distributed_tpu/models/transformer.py.
 
 Parameters stay a flat ``dict[str, Tensor]`` keyed by the JAX names
 (``layer{i}/attn/wq``, ... or the stacked ``blocks/*`` layout), which is
@@ -13,6 +13,13 @@ accumulates in f32 and rounds once to bf16, which is what the reference's
 ``dot(..., preferred_element_type=f32).astype(bf16)`` does; where the
 reference keeps the f32 product (a bias add before the cast, the logits),
 the port multiplies in f32 (:func:`_dot_f32`).
+
+Training: :meth:`Transformer.loss` is the mean next-token cross-entropy,
+with the LM head in ``loss_chunk`` pieces under ``torch.utils.checkpoint``
+when configured; ``remat`` checkpoints each layer (non-reentrant), and
+``remat_policy="dots"`` keeps the projection products (``aten.mm``, the
+matmuls with no batch dims) and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ..device import resolve_device
 
@@ -46,10 +56,13 @@ class TransformerConfig:
     max_seq: int = 2048
     dtype: torch.dtype = torch.bfloat16
     rope_theta: float = 10000.0
-    # remat, remat_policy and loss_chunk are carried for the training
-    # slice; the serving forward does not read them
+    # recompute each layer in the backward pass (torch.utils.checkpoint);
+    # "full" saves nothing inside a layer, "dots" saves its projection
+    # products; the serving forward does not read them
     remat: bool = False
     remat_policy: str = "full"
+    # LM head + loss in seq chunks of this many positions, each recomputed
+    # in the backward pass (0 = one pass over the whole sequence)
     loss_chunk: int = 0
     # mixture-of-experts fields are carried; moe_every > 0 is refused by
     # Transformer until models/moe.py is ported
@@ -97,6 +110,22 @@ class TransformerConfig:
 
     def is_moe_layer(self, i: int) -> bool:
         return self.moe_every > 0 and (i + 1) % self.moe_every == 0
+
+
+def next_token_nll(logits: Tensor, tokens: Tensor) -> Tensor:
+    """Mean next-token cross-entropy from full-sequence logits."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of matmuls with no batch dims (``torch.matmul`` of activations
+    by a weight runs as ``aten.mm``), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _dot(x: Tensor, w: Tensor) -> Tensor:
@@ -164,6 +193,20 @@ def expand_gqa(q: Tensor, k: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
                          f"kv heads {k.shape[2]}")
     groups = q.shape[2] // k.shape[2]
     return repeat_kv(k, groups), repeat_kv(v, groups)
+
+
+def prepare_gqa_kv(q: Tensor, k: Tensor, v: Tensor,
+                   n_tp: int) -> tuple[Tensor, Tensor]:
+    """Validate GQA head grouping and, when the unexpanded kv_heads axis
+    cannot be split over ``n_tp`` tensor-parallel shards (kv_heads % n_tp
+    != 0), pre-expand K/V to the query head count; otherwise keep the
+    small kv_heads-sized tensors."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"query heads {q.shape[2]} must divide by "
+                         f"kv heads {k.shape[2]}")
+    if n_tp > 1 and k.shape[2] % n_tp:
+        k, v = expand_gqa(q, k, v)
+    return k, v
 
 
 def causal_attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
@@ -434,17 +477,86 @@ class Transformer:
         h = self.embed(params, tokens, positions)
         kvs: list = []
         aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+        # remat recomputes each layer in the backward pass; never combined
+        # with collect_kv, which exists to save per-layer tensors
+        remat = c.remat and not collect_kv and torch.is_grad_enabled()
         for i in range(c.n_layers):
-            lp, p = self.layer_view(params, i)
-            q, k, v = self.qkv(lp, p, h, positions)
-            # K/V go to the attention fn unexpanded (kv_heads-sized)
-            attn = self.attention_fn(q, k, v)
-            h = self.attn_residual(lp, p, h, attn)
-            h, aux = self.ffn_residual(params, i, h)
+            if remat:
+                h, aux = checkpoint(self._remat_layer, params, i, h,
+                                    positions, use_reentrant=False,
+                                    context_fn=self._remat_context)
+            else:
+                h, aux, kv = self._layer(params, i, h, positions)
+                if collect_kv:
+                    kvs.append(kv)
             aux_total = aux_total + aux
-            if collect_kv:
-                kvs.append((k, v))
         return h, kvs, aux_total
+
+    def _layer(self, params: Mapping[str, Tensor], i: int, h: Tensor,
+               positions: Tensor) -> tuple[Tensor, Tensor, tuple]:
+        """One block: (new h, aux loss, post-rope (k, v)).  Under the
+        stacked layout the layer's slice of ``blocks/*`` is taken here, so
+        a checkpointed layer recomputes its own view."""
+        lp, p = self.layer_view(params, i)
+        q, k, v = self.qkv(lp, p, h, positions)
+        # K/V go to the attention fn unexpanded (kv_heads-sized)
+        attn = self.attention_fn(q, k, v)
+        h = self.attn_residual(lp, p, h, attn)
+        h, aux = self.ffn_residual(params, i, h)
+        return h, aux, (k, v)
+
+    def _remat_layer(self, params, i, h, positions):
+        return self._layer(params, i, h, positions)[:2]
+
+    def _remat_context(self):
+        if self.config.remat_policy == "dots":
+            return create_selective_checkpoint_contexts(_save_dots)
+        return noop_context_fn()
+
+    # ------------------------------------------------------------- loss
+    def loss(self, params: Mapping[str, Tensor], batch) -> Tensor:
+        """Mean next-token cross-entropy (f32 scalar).  batch: [B, S]
+        integer tokens (or a (tokens,) tuple)."""
+        tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
+        # run the full sequence and drop the last position's logits
+        h, _, aux = self._forward(params, tokens, collect_kv=False)
+        if self.config.loss_chunk:
+            nll = self._chunked_next_token_nll(params, h, tokens)
+        else:
+            nll = next_token_nll(self.final_logits(params, h), tokens)
+        return nll + self.config.moe_aux_coef * aux
+
+    def _chunked_next_token_nll(self, params: Mapping[str, Tensor],
+                                h: Tensor, tokens: Tensor) -> Tensor:
+        """Mean next-token NLL with the LM head computed in seq chunks of
+        ``config.loss_chunk`` positions, each under
+        ``torch.utils.checkpoint``: peak logits memory is O(chunk * vocab)
+        instead of O(S * vocab), with the chunk recomputed in the backward
+        pass.  Equal to the unchunked loss (tested)."""
+        batch, seq = tokens.shape
+        chunk = self.config.loss_chunk
+        if seq % chunk:
+            raise ValueError(f"loss_chunk={chunk} must divide seq len {seq}")
+        # shift targets; the final position has no target (masked out)
+        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((batch, 1))],
+                            dim=1)
+        valid = (torch.arange(seq, device=h.device) < seq - 1).float()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for start in range(0, seq, chunk):
+            part = (h[:, start:start + chunk], targets[:, start:start + chunk],
+                    valid[start:start + chunk])
+            if torch.is_grad_enabled():
+                total = total + checkpoint(self._chunk_nll_sum, params, *part,
+                                           use_reentrant=False)
+            else:
+                total = total + self._chunk_nll_sum(params, *part)
+        return total / (batch * (seq - 1))
+
+    def _chunk_nll_sum(self, params: Mapping[str, Tensor], h_c: Tensor,
+                       t_c: Tensor, v_c: Tensor) -> Tensor:
+        logp = torch.log_softmax(self.final_logits(params, h_c), dim=-1)
+        nll = -logp.gather(-1, t_c[..., None].long())[..., 0]
+        return (nll * v_c[None, :]).sum()
 
 
 def stack_layers(params: Mapping[str, Tensor], n_layers: int) -> dict:

@@ -22,7 +22,7 @@ import time
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
-SOURCES = ("flash_fwd",)
+SOURCES = ("flash_fwd", "flash_bwd", "fused_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,16 +8,28 @@ TF32 is off (torch.backends.cuda.matmul.allow_tf32 = False), so float32
 products are full float32.  Tolerances: float32 o within 2e-4 (the GQA
 tolerance of tests/test_pallas_ops.py:240); bf16 o within 2e-2 of the
 float32 plain output from the same bf16 inputs, since the kernel rounds o
-once to bf16; lse within 1e-4 relative."""
+once to bf16; lse within 1e-4 relative.  Backward: float32 gradients
+rtol 5e-4, atol 1e-5 (tests/test_pallas_ops.py:195); bf16 gradients
+rtol 1e-2, atol 1e-3 against the float32 plain version on the same bf16
+inputs (the kernels round each output once to bf16, 2^-9 relative).
+Fused updates rtol 1e-5, atol 1e-7 (tests/test_pallas_ops.py:50-88); the
+card's training step against the CPU's, gradients rtol 1e-3, atol 1e-5
+(the same f32 arithmetic, summed in another order by other GEMMs)."""
 
+import numpy as np
 import pytest
 import torch
 
+from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+    import PallasOptimizer
+from parameter_server_distributed_tpu_torch.device import same_device
 from parameter_server_distributed_tpu_torch.models.generation import generate
 from parameter_server_distributed_tpu_torch.models.serving import DecodeServer
 from parameter_server_distributed_tpu_torch.models.transformer import (
     Transformer, TransformerConfig, causal_attention, flash_attention_auto)
 from parameter_server_distributed_tpu_torch.ops import flash_attention as fa
+from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
 
 
 @pytest.fixture
@@ -40,10 +52,10 @@ def test_kernel_matches_plain(card, dtype, kv, groups, d, s):
     k, v = (torch.randn((kv, s, d), generator=gen, device=card, dtype=dtype)
             for _ in range(2))
     block = next(b for b in (128, 64, 32, 8) if s % b == 0)
-    before = fa.launches
+    before = fa.launches["flash_fwd"]
     o, lse = fa._flash_fwd(q, k, v, block, block, s // block)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches["flash_fwd"] == before + 1
     assert o.dtype == dtype and o.shape == q.shape
     assert lse.shape == (kv, 1, groups * s)
     o_ref, lse_ref = fa.flash_fwd_reference(q.float(), k.float(), v.float(),
@@ -55,9 +67,25 @@ def test_kernel_matches_plain(card, dtype, kv, groups, d, s):
 
 @pytest.mark.cuda
 def test_kernel_refuses_grad_and_bad_shapes(card):
-    q = torch.zeros((1, 128, 64), device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fa._flash_fwd(q, q.detach(), q.detach(), 128, 128)
+    """Gradients flow through the kernels (the autograd Function's
+    backward launches dQ and dK/dV once each and matches dense attention
+    at the reference's f32 gradient tolerance); head_dim and dtype outside
+    the kernels' contract are refused."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((1, 128, 4, 64), generator=gen, device=card)
+    k, v = (torch.randn((1, 128, 2, 64), generator=gen, device=card)
+            for _ in range(2))
+    grads = []
+    before = dict(fa.launches)
+    for attention in (fa.flash_attention_gqa, causal_attention):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        (attention(*xs) ** 2).sum().backward()
+        grads.append([x.grad for x in xs])
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=1e-5)
     x = torch.zeros((1, 128, 32), device=card)
     with pytest.raises(ValueError, match="head_dim"):
         fa._flash_fwd(x, x, x, 128, 128)
@@ -81,7 +109,7 @@ def test_model_and_server_through_kernel(card):
     with torch.inference_mode():
         fa.reset_launches()
         flash = model.apply(params, tokens)
-        assert fa.launches == cfg.n_layers
+        assert fa.launches["flash_fwd"] == cfg.n_layers
         dense = Transformer(cfg, attention_fn=causal_attention).apply(
             params, tokens)
     torch.testing.assert_close(flash, dense, rtol=1e-4, atol=1e-4)
@@ -91,3 +119,111 @@ def test_model_and_server_through_kernel(card):
     results = srv.run_to_completion()
     for rid, p in zip(rids, prompts):
         assert results[rid] == generate(model, params, [p], 6)[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kv,groups,d,s", [
+    (torch.bfloat16, 4, 4, 64, 1024), (torch.float32, 4, 4, 64, 1024),
+    (torch.bfloat16, 2, 3, 64, 200), (torch.float32, 2, 2, 128, 96),
+    (torch.bfloat16, 2, 2, 128, 200), (torch.float32, 1, 3, 64, 200),
+    (torch.bfloat16, 8, 1, 128, 96)])
+def test_backward_kernels_match_plain(card, dtype, kv, groups, d, s):
+    """dQ and dK/dV against flash_bwd_reference on the same inputs, with G
+    segments whose length need not be a multiple of the 64-row tile."""
+    gen = torch.Generator(device=card).manual_seed(s + d + groups)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    q, g = randn(kv, groups * s, d), randn(kv, groups * s, d)
+    k, v = randn(kv, s, d), randn(kv, s, d)
+    o, lse = fa.flash_fwd_reference(q.float(), k.float(), v.float(), s)
+    o = o.to(dtype)
+    block = next(b for b in (128, 64, 32, 8) if s % b == 0)
+    before = dict(fa.launches)
+    got = fa._flash_bwd(q, k, v, o, lse, g, block, block, s // block)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    ref = fa.flash_bwd_reference(*(x.float() for x in (q, k, v, o)), lse,
+                                 g.float(), s)
+    tol = (dict(rtol=5e-4, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=1e-2, atol=1e-3))
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b, **tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam"])
+@pytest.mark.parametrize("n,offset", [(1 << 20, 0), (1000003, 0),
+                                      (4099, 1)])
+def test_fused_updates_match_plain(card, rule, n, offset):
+    """Each update kernel against its plain version on the same inputs:
+    the float4 body with a ragged tail, and (offset 1) operands that are
+    not 16-byte aligned, which take the scalar path."""
+    gen = torch.Generator(device=card).manual_seed(n + offset)
+
+    def randn():
+        return torch.randn(n + offset, generator=gen, device=card)[offset:]
+
+    p, g, s0, s1 = randn(), randn(), randn(), randn().abs()
+    slots = {"sgd": (), "momentum": (s0,), "adam": (s0, s1)}[rule]
+    ref_slots = tuple(s.clone() for s in slots)
+    before = fu.launches[f"fused_{rule}"]
+    if rule == "sgd":
+        out = fu.fused_sgd({"w": p}, {"w": g}, 0.3)["w"]
+        ref = fu.sgd_reference(p, g, 0.3)
+    elif rule == "momentum":
+        out = fu.fused_momentum({"w": p}, {"w": g}, {"w": s0}, 0.1, 0.9)[0]["w"]
+        ref = fu.momentum_reference(p, g, *ref_slots, 0.1, 0.9)
+    else:
+        out = fu.fused_adam({"w": p}, {"w": g}, {"w": s0}, {"w": s1}, 5,
+                            lr=0.01)[0]["w"]
+        ref = fu.adam_reference(p, g, *ref_slots, 0.01, 0.9, 0.999, 1e-8,
+                                *fu.bias_corrections(5, 0.9, 0.999))
+    torch.cuda.synchronize()
+    assert fu.launches[f"fused_{rule}"] == before + 1
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-7)
+    for got, want in zip(slots, ref_slots):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_cpu(card):
+    """A 2-layer f32 model (head_dim 64, remat, chunked loss) trains on
+    the card through the kernels: the launch counts are the expected ones,
+    the gradients match the CPU's plain step, and two Adam rounds lower
+    the loss."""
+    cfg = TransformerConfig(vocab=512, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, max_seq=256,
+                            mlp_act="swiglu", dtype=torch.float32,
+                            remat=True, loss_chunk=128)
+    model = Transformer(cfg, attention_fn=flash_attention_auto)
+    cpu_trainer = Trainer(model, device="cpu")
+    store = cpu_trainer.init_params(0)
+    batch = np.random.default_rng(1).integers(0, 512, (2, 256),
+                                              dtype=np.int32)
+    ref_g, ref_loss = cpu_trainer.compute_gradients(store, batch)
+    trainer = Trainer(model, device=card)
+    opt = PallasOptimizer("adam", 1e-3, device=card)
+    fa.reset_launches()
+    fu.reset_launches()
+    grads, loss = trainer.compute_gradients(store, batch)
+    assert fa.launches == {"flash_fwd": 2 * cfg.n_layers,
+                           "flash_bwd_dq": cfg.n_layers,
+                           "flash_bwd_dkv": cfg.n_layers}
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    for name, ref in ref_g.items():
+        np.testing.assert_allclose(grads[name], ref, rtol=1e-3, atol=1e-5,
+                                   err_msg=name)
+    params, losses = store, [loss]
+    for _ in range(2):
+        params = opt.apply(params, grads)
+        # card-resident params: the next step packs them on the card
+        assert all(same_device(p.device, trainer.device)
+                   for p in params.values())
+        grads, loss = trainer.compute_gradients(params, batch)
+        losses.append(loss)
+    assert fu.launches["fused_adam"] == 2 * len(store)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

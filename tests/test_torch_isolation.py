@@ -78,30 +78,57 @@ def test_port_imports_and_serves_with_jax_blocked():
                            slots=1, max_len=32, device="cpu")
         rid = srv.submit([1, 2, 3], max_new_tokens=4)
         assert len(srv.run_to_completion()[rid]) == 4
+        # one training round: worker step, then the PS apply
+        from parameter_server_distributed_tpu_torch.async_sgd import \\
+            device_optimizer
+        from parameter_server_distributed_tpu_torch.models.registry import \\
+            get_model_and_batches
+        from parameter_server_distributed_tpu_torch.worker.trainer import \\
+            Trainer
+        model, batches = get_model_and_batches("tiny_lm", 2, device="cpu")
+        trainer = Trainer(model, device="cpu")
+        params = trainer.init_params(0)
+        grads, loss = trainer.compute_gradients(params, next(batches))
+        opt = device_optimizer.PallasOptimizer("adam", 1e-3, device="cpu")
+        new = opt.apply(params, grads)
+        assert loss > 0 and sorted(new) == sorted(params)
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served")
+        print("served and trained")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "served" in proc.stdout
+    assert "served and trained" in proc.stdout
 
 
 def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import PallasOptimizer
     from parameter_server_distributed_tpu_torch.cli import serve_main
+    from parameter_server_distributed_tpu_torch.data.synthetic import \
+        synthetic_tokens
     from parameter_server_distributed_tpu_torch.models import generation
-    from parameter_server_distributed_tpu_torch.models.registry import \
-        get_model
+    from parameter_server_distributed_tpu_torch.models.registry import (
+        get_model, get_model_and_batches)
     from parameter_server_distributed_tpu_torch.models.serving import \
         DecodeServer
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
 
     model = get_model("tiny_lm")
     params = model.init_params(0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PallasOptimizer("adam")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        synthetic_tokens(2, 16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model_and_batches("tiny_lm", 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_params(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -118,3 +145,17 @@ def test_cpu_params_refused_for_another_device():
 
     with pytest.raises(ValueError, match="lies on cpu"):
         check_on_device({"w": torch.zeros(1)}, torch.device("meta"))
+
+
+def test_index_less_card_matches_every_index():
+    """resolve_device() gives an index-less "cuda"; tensors on the card
+    report "cuda:0", and must count as on it (or the Trainer would take
+    card-resident params back through the host every step)."""
+    from parameter_server_distributed_tpu_torch.device import same_device
+
+    card = torch.device("cuda")
+    assert same_device(torch.device("cuda", 0), card)
+    assert same_device(torch.device("cuda", 1), card)
+    assert same_device(torch.device("cuda", 0), torch.device("cuda", 0))
+    assert not same_device(torch.device("cuda", 1), torch.device("cuda", 0))
+    assert not same_device(torch.device("cpu"), card)
