@@ -130,17 +130,23 @@ def folded_inputs(torch, gen, b, s, heads, kv, d, dtype):
 
 
 def check_flash_fwd(torch, fa, gen) -> float:
-    """flash_fwd against its plain version at the serving shapes, MHA,
-    D=128 and f32; returns the largest |o| error."""
-    cases = [(s, LLAMA["heads"], LLAMA["kv"], 64, torch.bfloat16)
-             for s in (128, 512, 2048)]
-    cases += [(512, 16, 16, 64, torch.bfloat16),     # MHA
-              (512, 8, 8, 128, torch.bfloat16),      # lm_350m_hd128
-              (512, 16, 4, 64, torch.float32),
-              (256, 8, 8, 128, torch.float32)]
+    """flash_fwd against its plain version at every shape the main paths
+    give it (each serving prefill bucket at B=1, the llama_350m training
+    batch, the f32 models of the serve_vs_generate and
+    train_flash_vs_dense phases), MHA and D=128; returns the largest |o|
+    error."""
+    heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+    cases = [(1, s, heads, kv, d, torch.bfloat16)
+             for s in (128, 256, 512, 1024, 2048)]
+    cases += [(TRAIN["batch"], TRAIN["seq"], heads, kv, d, torch.bfloat16),
+              (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
+              (1, 512, 8, 8, 128, torch.bfloat16),      # lm_350m_hd128
+              (1, 512, 16, 4, 64, torch.float32),
+              (4, 256, 4, 2, 64, torch.float32),        # the 2-layer f32
+              (1, 256, 8, 8, 128, torch.float32)]
     max_err = 0.0
-    for s, heads, kv, d, dtype in cases:
-        q, k, v = folded_inputs(torch, gen, 1, s, heads, kv, d, dtype)
+    for b, s, heads, kv, d, dtype in cases:
+        q, k, v = folded_inputs(torch, gen, b, s, heads, kv, d, dtype)
         with torch.inference_mode():
             o, lse = fa._flash_fwd(q, k, v, 128, 128, s // 128)
             torch.cuda.synchronize()
@@ -149,7 +155,7 @@ def check_flash_fwd(torch, fa, gen) -> float:
             o_ref, lse_ref = fa.flash_fwd_reference(q.float(), k.float(),
                                                     v.float(), s)
         if o.shape != q.shape or o.dtype != dtype or lse.shape != (
-                kv, 1, q.shape[1]):
+                b * kv, 1, q.shape[1]):
             fail(f"flash_fwd shapes {tuple(o.shape)} {o.dtype} "
                  f"{tuple(lse.shape)}")
         d_o = float((o.float() - o_ref).abs().max())
@@ -158,12 +164,13 @@ def check_flash_fwd(torch, fa, gen) -> float:
         d_lse = float(((lse - lse_ref).abs()
                        / lse_ref.abs().clamp_min(1.0)).max())
         tol_o = 2e-2 if dtype == torch.bfloat16 else 2e-4
-        emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd", "seq": s,
-              "heads": heads, "kv_heads": kv, "head_dim": d,
-              "dtype": str(dtype).split(".")[-1], "max_abs_do": d_o,
-              "tol_o": tol_o, "max_rel_dlse": d_lse, "tol_lse": 1e-4})
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_fwd",
+              "batch": b, "seq": s, "heads": heads, "kv_heads": kv,
+              "head_dim": d, "dtype": str(dtype).split(".")[-1],
+              "max_abs_do": d_o, "tol_o": tol_o, "max_rel_dlse": d_lse,
+              "tol_lse": 1e-4})
         if not (math.isfinite(d_o) and d_o <= tol_o and d_lse <= 1e-4):
-            fail(f"flash_fwd disagrees with its plain version at "
+            fail(f"flash_fwd disagrees with its plain version at B={b} "
                  f"S={s} H={heads} KV={kv} D={d} {dtype}: |do| {d_o}, "
                  f"rel |dlse| {d_lse}")
         max_err = max(max_err, d_o)
@@ -444,7 +451,7 @@ def time_updates(torch, fu, shapes, gen) -> dict:
         emit({"phase": "times", "kernel": f"fused_{rule}",
               "tensors": len(names), "elements": n, "ms_runs": runs,
               "plain_ms_runs": [plain1, plain2],
-              "device_ms": device_ms["k"] if device_ms else None,
+              "device_ms": device_ms["k"],
               "library": f"torch.optim.{'Adam' if rule == 'adam' else 'SGD'}"
                          f"(fused=True)", **out[f"fused_{rule}"]})
         del p, g, slots
@@ -471,17 +478,18 @@ def profile_window(torch, fn, names: dict[str, str]) -> dict:
             entry = by_name.setdefault(evt.name, [0.0, 0])
             entry[0] += evt.time_range.elapsed_us() / 1e3
             entry[1] += 1
+    if not by_name:
+        # the checks read from these events (the training step's one
+        # device-to-host copy among them) must not pass on an empty trace
+        fail("torch.profiler recorded no CUDA events")
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     groups = {group: [sum(x[i] for name, x in by_name.items() if key in name)
                       for i in (0, 1)] for group, key in names.items()}
-    return {"window_s": window,
-            "kernel_ms": busy_ms if by_name else None,
-            "device_busy_share": busy_ms / 1e3 / window if by_name else None,
-            "group_ms": ({g: ms for g, (ms, _) in groups.items()}
-                         if by_name else None),
-            "group_events": ({g: n for g, (_, n) in groups.items()}
-                             if by_name else None),
+    return {"window_s": window, "kernel_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / window,
+            "group_ms": {g: ms for g, (ms, _) in groups.items()},
+            "group_events": {g: n for g, (_, n) in groups.items()},
             "top": [[name[:80], ms, n] for name, (ms, n) in top[:12]]}
 
 
@@ -729,7 +737,7 @@ def train(torch, np, fa, fu) -> dict:
     emit({"phase": "train_profile", **prof})
     # the host round trips of a step on card-resident params: one packed
     # gradient download, and the apply's uploads of the host gradients
-    if prof["group_events"] and prof["group_events"]["dtoh"] != 1:
+    if prof["group_events"]["dtoh"] != 1:
         fail(f"a training step made {prof['group_events']['dtoh']} "
              f"device-to-host copies, not 1")
     del params, grads, store, opt, trainer

@@ -28,9 +28,6 @@ REGISTRY: dict[str, Callable[..., Transformer]] = {
     "llama_350m": llama_350m,
 }
 
-# the flagships take remat_policy; the test-scale LMs do not
-_REMAT_POLICY = ("lm_350m", "lm_350m_gqa", "lm_350m_hd128", "llama_350m")
-
 DTYPE_NAMES = {"f32": torch.float32, "float32": torch.float32,
                "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
@@ -42,34 +39,17 @@ def resolve_dtype(name: str) -> torch.dtype:
     return DTYPE_NAMES[name]
 
 
-def get_model(name: str, dtype: str = "", remat: bool | None = None,
-              scan: bool | None = None, seq_len: int = 0,
-              remat_policy: str = "") -> Transformer:
-    """Build a registry LM.  ``dtype`` ("f32"/"bf16"), ``remat``,
-    ``scan`` (the stacked layout), ``seq_len`` and ``remat_policy``
-    override the factory's defaults where given (empty / None = keep)."""
+def get_model(name: str, dtype: str = "") -> Transformer:
+    """Build a registry LM at its factory's defaults; ``dtype``
+    ("f32"/"bf16") overrides the factory's where given."""
     if name not in REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(REGISTRY)}")
     kwargs: dict = {"dtype": resolve_dtype(dtype)} if dtype else {}
-    if remat is not None:
-        kwargs["remat"] = remat
-    if scan is not None:
-        kwargs["scan_layers"] = scan
-    if seq_len:
-        kwargs["seq"] = seq_len
-    if remat_policy:
-        if name not in _REMAT_POLICY:
-            raise ValueError(f"model {name!r} does not support "
-                             f"remat_policy (flagship transformer LMs only)")
-        kwargs["remat_policy"] = remat_policy
     return REGISTRY[name](**kwargs)
 
 
 def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
-                          data_path: str = "", dtype: str = "",
-                          remat: bool | None = None,
-                          scan: bool | None = None, seq_len: int = 0,
-                          remat_policy: str = "", device=None
+                          data_path: str = "", dtype: str = "", device=None
                           ) -> tuple[Transformer, Iterator[torch.Tensor]]:
     """(model, batch iterator): the model from :func:`get_model` and the
     registry's synthetic token stream at the model's (vocab, max_seq), on
@@ -79,7 +59,7 @@ def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
     if data_path:
         raise NotImplementedError(f"file-backed data ({data_path!r}): "
                                   f"{ROADMAP_DATA}")
-    model = get_model(name, dtype, remat, scan, seq_len, remat_policy)
+    model = get_model(name, dtype)
     batches = synthetic_tokens(batch_size, seq_len=model.config.max_seq,
                                vocab=model.config.vocab, seed=seed,
                                device=device)
