@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in this checkout
-(one nvcc per source, all at once), holds each kernel against its plain
+(one nvcc per source, all at once; the build phase counts each kernel's
+tensor-core instructions in its SASS), holds each kernel against its plain
 PyTorch version on the card and times it beside its bound and a library
 yardstick, then drives the two paths of the port:
 
@@ -13,7 +14,9 @@ yardstick, then drives the two paths of the port:
 - training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
   flash attention, weights from a seed) taking 5 Trainer.compute_gradients
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
-  tokens, then one sgd and one momentum apply over the same store.
+  tokens, then one sgd and one momentum apply over the same store; then
+  the same 5 steps with dense attention, whose losses stand beside the
+  kernels' (the first must agree within 1e-3).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must equal the expected counts.  Each phase prints one JSON
@@ -30,6 +33,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -129,26 +133,84 @@ def folded_inputs(torch, gen, b, s, heads, kv, d, dtype):
     return q, k, v
 
 
+def kernel_label(mangled: str) -> str:
+    """``name/D<head_dim>[/bf16]`` of a mangled kernel symbol: the last of
+    its length-prefixed name components (after the anonymous
+    namespace's), its first integer template argument, and /bf16 where
+    its first template argument is the bf16 type."""
+    pos, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        start = pos + len(m.group())
+        name, pos = mangled[start:start + int(m.group())], start + int(
+            m.group())
+    dim = re.search(r"Li(\d+)E", mangled[pos:])
+    return (name + (f"/D{dim.group(1)}" if dim else "")
+            + ("/bf16" if mangled[pos:].startswith("I13__nv_bfloat16")
+               else ""))
+
+
+def ptxas_report(log: str) -> dict[str, str]:
+    """Registers, barriers and spills per kernel from nvcc's -Xptxas -v
+    output."""
+    out, kernel = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = kernel_label(m.group(1))
+        elif kernel and ("registers" in line or "spill" in line):
+            out[kernel] = (out.get(kernel, "") + " " + line.split(":", 1)[
+                -1].strip()).strip()
+    return out
+
+
+def tensor_core_counts(build) -> dict:
+    """Tensor-core instructions in each built library's SASS
+    (``cuobjdump -sass``): HGMMA for wgmma, HMMA for mma.sync, per source
+    and per kernel (its name and head_dim, summed over types)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([tool, "-sass", build.library_path(name)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        totals, by_kernel, kernel = {"HGMMA": 0, "HMMA": 0}, {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = kernel_label(line.split("Function :")[1].strip())
+                by_kernel.setdefault(kernel, 0)
+                continue
+            op = re.search(r"\b(HGMMA|HMMA)\b", line)
+            if op and kernel:
+                totals[op.group(1)] += 1
+                by_kernel[kernel] += 1
+        out[name] = {**totals, "by_kernel": by_kernel}
+    return out
+
+
 def check_flash_fwd(torch, fa, gen) -> float:
     """flash_fwd against its plain version at every shape the main paths
     give it (each serving prefill bucket at B=1, the llama_350m training
     batch, the f32 models of the serve_vs_generate and
-    train_flash_vs_dense phases), MHA and D=128; returns the largest |o|
-    error."""
+    train_flash_vs_dense phases), MHA, D=128 and ragged segments (S=200,
+    whose last q tile runs into the next segment's rows); returns the
+    largest |o| error."""
     heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
     cases = [(1, s, heads, kv, d, torch.bfloat16)
              for s in (128, 256, 512, 1024, 2048)]
     cases += [(TRAIN["batch"], TRAIN["seq"], heads, kv, d, torch.bfloat16),
               (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
               (1, 512, 8, 8, 128, torch.bfloat16),      # lm_350m_hd128
+              (2, 512, 16, 4, 128, torch.bfloat16),     # D=128, G=4
+              (2, 200, 6, 2, 64, torch.bfloat16),       # S % 64 != 0, G=3
               (1, 512, 16, 4, 64, torch.float32),
               (4, 256, 4, 2, 64, torch.float32),        # the 2-layer f32
               (1, 256, 8, 8, 128, torch.float32)]
     max_err = 0.0
     for b, s, heads, kv, d, dtype in cases:
         q, k, v = folded_inputs(torch, gen, b, s, heads, kv, d, dtype)
+        block = next(x for x in (128, 64, 8) if s % x == 0)
         with torch.inference_mode():
-            o, lse = fa._flash_fwd(q, k, v, 128, 128, s // 128)
+            o, lse = fa._flash_fwd(q, k, v, block, block, s // block)
             torch.cuda.synchronize()
             # the f32 plain output from the same inputs (bf16 o is
             # rounded once, so it is held within 2e-2 of that)
@@ -198,6 +260,8 @@ def check_flash_bwd(torch, fa, gen) -> dict[str, float]:
     cases = [(b, TRAIN["seq"], heads, kv, d, torch.bfloat16),
              (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
              (2, 512, 8, 2, 128, torch.bfloat16),      # D=128, G=4
+             (2, 200, 6, 2, 64, torch.bfloat16),       # S % 64 != 0, G=3
+             (1, 200, 6, 2, 128, torch.bfloat16),
              (2, 256, 16, 4, 64, torch.float32),
              (1, 200, 6, 2, 128, torch.float32)]        # S % 64 != 0
     max_err = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
@@ -648,8 +712,9 @@ def model_flops_per_step(model, batch: int, seq: int) -> float:
 def train(torch, np, fa, fu) -> dict:
     """The training path: full-width llama_350m, 5 worker steps and Adam
     applies on one batch, then one sgd and one momentum apply; then one
-    profiled step, and a 2-layer f32 model's gradients through the kernels
-    against dense attention.  Returns the path's launch counts."""
+    profiled step, the same 5 steps with dense attention, and a 2-layer
+    f32 model's gradients through the kernels against dense attention.
+    Returns the path's launch counts."""
     from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
         import PallasOptimizer
     from parameter_server_distributed_tpu_torch.models.registry import \
@@ -743,6 +808,30 @@ def train(torch, np, fa, fu) -> dict:
     del params, grads, store, opt, trainer
     torch.cuda.empty_cache()
 
+    # the same steps with dense attention (f32 scores and softmax, P
+    # rounded to bf16 before the value product) from the same weights on
+    # the same batch: the first loss is the same function of the same
+    # inputs; later ones drift apart as each path's rounding compounds
+    # through Adam
+    dense_trainer = Trainer(Transformer(c, attention_fn=causal_attention))
+    dense_params, dense_opt = dense_trainer.init_params(0), PallasOptimizer(
+        "adam", TRAIN["lr"])
+    dense_losses = []
+    for _ in range(steps):
+        g_, loss_ = dense_trainer.compute_gradients(dense_params, batch)
+        dense_params = dense_opt.apply(dense_params, g_)
+        dense_losses.append(loss_)
+    emit({"phase": "train_losses_vs_dense", "losses_flash": losses,
+          "losses_dense": dense_losses,
+          "abs_diff": [abs(a - b) for a, b in zip(losses, dense_losses)],
+          "tol_first_rel": 1e-3})
+    if (abs(losses[0] - dense_losses[0]) > 1e-3 * abs(dense_losses[0])
+            or dense_losses[-1] >= dense_losses[0]):
+        fail(f"llama_350m first loss {losses[0]} off dense "
+             f"{dense_losses[0]}, or dense losses not falling")
+    del dense_trainer, dense_params, dense_opt, g_
+    torch.cuda.empty_cache()
+
     # a 2-layer f32 model (head_dim 64, remat, chunked loss): gradients
     # through the kernels against dense attention, the same f32
     # arithmetic in another order, within rtol 1e-3, atol 1e-5
@@ -802,11 +891,20 @@ def main() -> int:
     # ---- build every kernel source, all nvcc processes at once
     t0 = time.perf_counter()
     seconds = build.build(build.SOURCES)
-    ptxas = {name: [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
+    ptxas = {name: ptxas_report(log)
              for name, log in build.BUILD_LOGS.items()}
-    emit({"phase": "build", "seconds": seconds,
-          "wall_s": time.perf_counter() - t0, "ptxas": ptxas})
+    wall = time.perf_counter() - t0
+    tensor_core = tensor_core_counts(build)
+    emit({"phase": "build", "seconds": seconds, "wall_s": wall,
+          "ptxas": ptxas, "tensor_core_sass": tensor_core})
+    # the bf16 forward and dK/dV kernels run their products on the tensor
+    # cores
+    for src_name, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
+                             ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
+        for dim in (64, 128):
+            if not tensor_core[src_name]["by_kernel"].get(
+                    f"{kernel}/D{dim}"):
+                fail(f"{kernel} (D={dim}) has no HMMA/HGMMA in its SASS")
 
     # ---- every kernel against its plain version, then timed
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -4,41 +4,65 @@
 // Replaces the two Pallas TPU kernels of _flash_bwd
 // (parameter_server_distributed_tpu/ops/pallas/flash_attention.py:244):
 //  - _flash_bwd_dq_kernel (:162)  -> flash_bwd_dq_kernel below;
-//  - _flash_bwd_dkv_kernel (:202) -> flash_bwd_dkv_kernel below.
+//  - _flash_bwd_dkv_kernel (:202) -> flash_bwd_dkv_mma_kernel (bf16) and
+//    flash_bwd_dkv_kernel (f32) below.
 // Same function: the forward saved only O and the per-row logsumexp, so
-// both kernels recompute P = exp(s*scale - lse) (masked to 0) tile by tile,
+// the kernels recompute P = exp(s*scale - lse) (masked to 0) tile by tile,
 // with delta = rowsum(dO * O) computed in the kernel, dS = P * (dP - delta)
 // and dP = dO V^T; then dQ = scale * dS K, dV = P^T dO and
-// dK = scale * dS^T Q.  All arithmetic is f32; each output is written once
-// in the input type.  Under the GQA fold q/o/dO are [BH, G*S, D] against
-// k/v [BH, S, D]: the q-rows axis holds G segments of S rows that share
-// one K/V sequence, a row's causal position is its position inside its
+// dK = scale * dS^T Q.  Sums are f32; each output is written once in the
+// input type.  Under the GQA fold q/o/dO are [BH, G*S, D] against k/v
+// [BH, S, D]: the q-rows axis holds G segments of S rows that share one
+// K/V sequence, a row's causal position is its position inside its
 // segment, and dK/dV sum the G segments' contributions.
 //
 // What bounds it on this card.  dQ does three causal-half products
 // (QK^T, dO V^T, dS K) and dK/dV four (QK^T, dO V^T, P^T dO, dS^T Q), each
 // BH*G*S^2*D multiply-adds, against O(S*D) bytes per row: at the training
 // shapes (S = 1024) both are bound by operations, so the bound is the
-// tensor-core rate.  This first design does not reach for it.  It is the
-// simple, correct form, the design of flash_fwd.cu:
-//  - dQ: one thread block owns one (bh, segment, 64-row q tile); it
-//    computes delta for its rows once, then loops over 64-row k/v tiles up
-//    to its own causal frontier and accumulates dQ in registers;
-//  - dK/dV: one thread block owns one (bh, 64-row k tile) and walks every
-//    segment's q tiles from the k tile's frontier to the segment's end,
-//    accumulating dK and dV in registers.  One block owns the k tile across
-//    all G segments, so the GQA group sum needs no atomics and nothing
-//    carries between blocks (the TPU kernel's segment-restarting q stream,
-//    _q_frontier_spec :67, has no other counterpart);
-//  - tiles are staged in shared memory as f32 (row stride padded by one
-//    word, so column walks hit distinct banks) and the products run on the
-//    CUDA cores in f32, which keeps f32 inputs within the f32 tolerance;
-//  - the blocks with the longest causal walks start first.
-// Tensor cores (mma.sync / wgmma), TMA staging and pipelined tile rings are
-// the later work that moves it toward the bound.
+// tensor-core rate.
+//
+// dK/dV in bf16 (flash_bwd_dkv_mma_kernel, the main path): one block, a
+// warpgroup of four warps, owns one (bh, 64-row k tile), each warp 16 k
+// rows, and walks every segment's 64-row q tiles from the k tile's
+// frontier to the segment's end, accumulating dK and dV in registers: the
+// GQA group sum needs no atomics and nothing carries between blocks (the
+// TPU kernel's segment-restarting q stream, _q_frontier_spec :67, has no
+// other counterpart).  In the transposed form every product runs on the
+// tensor cores as a warpgroup MMA (wgmma m64n64k16, flash_mma.cuh) with k
+// rows as M:
+//  - S^T = K Q^T and dP^T = V dO^T with both operands in 128B-swizzled
+//    shared tiles, taking the bf16 inputs as they are (exact products,
+//    f32 sums);
+//  - P^T = exp(S^T*scale - lse) and dS^T = P^T (dP^T - delta) in f32
+//    registers, masked only on tiles that cross the diagonal or the
+//    segment's end;
+//  - dV += P^T dO and dK += dS^T Q each as two bf16 products on
+//    hi = bf16(x) and lo = bf16(x - hi) of P^T and dS^T (register A
+//    operands; the same swizzled dO and Q tiles read MN-major): one bf16
+//    rounding of P and dS puts ~0.2% of dk/dv entries outside the bf16
+//    tolerance (rtol 1e-2, atol 1e-3) at the training shape; the split
+//    keeps P and dS to ~2^-17 and costs 6 products a tile where 4 would
+//    do;
+//  - q, dO and O tiles and the tile's lse stream through a two-stage
+//    cp.async ring; delta = rowsum(dO * O) is taken from the staged tiles
+//    while S^T and dP^T run;
+//  - k tile 0, which walks the most q tiles, starts first.
+//
+// f32 (flash_bwd_dkv_kernel) and dQ in both types (flash_bwd_dq_kernel):
+// the products run on the CUDA cores in f32 (f32 inputs must stay within
+// the f32 tolerance, which bf16 or TF32 products would miss).  dQ: one
+// thread block owns one (bh, segment, 64-row q tile); it computes delta
+// for its rows once, then loops over 64-row k/v tiles up to its own
+// causal frontier and accumulates dQ in registers.  f32 dK/dV: the block
+// and walk of the bf16 kernel.  Tiles are staged in shared memory as f32
+// (row stride padded by one word).  A tensor-core dQ, with the same
+// hi/lo split of dS for dS K, is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -382,6 +406,237 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- dK/dV in bf16: tensor cores (wgmma)
+
+constexpr int DKV_THREADS = 128;   // one warpgroup, 16 k rows a warp
+constexpr int DKV_BK = 64;         // k rows per block
+constexpr int DKV_BQ = 64;         // q rows per tile
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // 1024 bytes of slack to align the swizzled tiles; k, v [BK][D]; q, dO,
+  // O [2 stages][BQ][D], all bf16; then lse [2 stages][BQ] and delta [BQ]
+  // f32
+  return 1024 + (size_t)(2 * DKV_BK + 6 * DKV_BQ) * D * sizeof(__nv_bfloat16) +
+         3 * DKV_BQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DKV_THREADS)
+flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ g,
+                         const float* __restrict__ lse,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int groups, int seg,
+                         float scale) {
+  using namespace flash_mma;
+  constexpr int BQ = DKV_BQ, BK = DKV_BK;
+  constexpr int KS = D / 16;          // k steps of K Q^T and V dO^T
+  constexpr int SLABS = D / 64;       // 64-column slabs of a row
+  constexpr int QT = BQ * D;          // elements of one q, dO or O tile
+  constexpr int TPR = DKV_THREADS / BQ;   // threads per row for delta
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ks = align1024(smem_raw);
+  bf16* vs = ks + BK * D;
+  bf16* stages = vs + BK * D;         // [2][q, dO, O]
+  float* lse_st = reinterpret_cast<float*>(stages + 6 * QT);   // [2][BQ]
+  float* delta_s = lse_st + 2 * BQ;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;     // k tile 0 walks the most: first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long rows = (long long)groups * seg;
+  const long long kvoff = (long long)bh * seg * D;
+
+  // q tiles before k0 / BQ end before this k tile starts: no row there
+  // attends to it.  The walk: segment by segment, q tile by q tile; tile
+  // t's q, dO, O and lse go to stage t & 1.
+  const int qt0 = k0 / BQ;
+  const int per = (seg + BQ - 1) / BQ - qt0;
+  const int total = groups * per;
+  auto prefetch = [&](int t) {
+    const int seg_i = t / per;
+    const int q0 = (qt0 + t % per) * BQ;
+    const long long off = ((long long)bh * rows + (long long)seg_i * seg) * D;
+    bf16* st = stages + (t & 1) * 3 * QT;
+    load_tile_sw128<BQ, D, DKV_THREADS>(st, q + off, q0, seg, tid);
+    load_tile_sw128<BQ, D, DKV_THREADS>(st + QT, g + off, q0, seg, tid);
+    load_tile_sw128<BQ, D, DKV_THREADS>(st + 2 * QT, o + off, q0, seg, tid);
+    if (tid < BQ) {
+      const bool in = q0 + tid < seg;
+      cp_async_4(lse_st + (t & 1) * BQ + tid,
+                 lse + (long long)bh * rows + (long long)seg_i * seg +
+                     (in ? q0 + tid : 0),
+                 in);
+    }
+  };
+  load_tile_sw128<BK, D, DKV_THREADS>(ks, k + kvoff, k0, seg, tid);
+  load_tile_sw128<BK, D, DKV_THREADS>(vs, v + kvoff, k0, seg, tid);
+  prefetch(0);
+  cp_async_commit();
+
+  // this thread's k rows: kr_lo (c0, c1) and kr_lo + 8
+  const int kr_lo = k0 + warp * 16 + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float dk_acc[SLABS][32], dv_acc[SLABS][32];
+#pragma unroll
+  for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[h][i] = dv_acc[h][i] = 0.f;
+
+  for (int t = 0; t < total; ++t) {
+    if (t + 1 < total) {
+      prefetch(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int q0 = (qt0 + t % per) * BQ;
+    const bf16* qst = stages + (t & 1) * 3 * QT;
+    const bf16* dost = qst + QT;
+    const bf16* ost = qst + 2 * QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 k rows x 64 q columns, st[4j + e]
+    // and dpt[4j + e] for q column tile j
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int at = (kk / 4) * 64 * 64 + (kk % 4) * 16;   // BK = BQ = 64
+      wgmma_ss_m64n64k16(st, sw128_desc(ks + at), sw128_desc(qst + at));
+      wgmma_ss_m64n64k16(dpt, sw128_desc(vs + at), sw128_desc(dost + at));
+    }
+    wgmma_commit();
+
+    // delta = rowsum(dO * O) for the tile's rows while the products run
+    {
+      const int r = tid / TPR, part = tid % TPR;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = part * (D / 8 / TPR); c < (part + 1) * (D / 8 / TPR); ++c) {
+        const int at = (c / 8) * BQ * 64 + sw128(r, c % 8);
+        const uint4 a = *reinterpret_cast<const uint4*>(dost + at);
+        const uint4 b = *reinterpret_cast<const uint4*>(ost + at);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(a2[e]);
+          const float2 y = __bfloat1622float2(b2[e]);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) delta_s[r] = sum;
+    }
+
+    __syncthreads();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T in place; a tile that crosses the diagonal or either
+    // segment end is masked (k row > q row, or q row past the segment)
+    const bool edge = q0 < k0 + BK || q0 + BQ > seg || k0 + BK > seg;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+      float p = exp2f(fmaf(st[i], sl2, -lse_st[(t & 1) * BQ + c] * LOG2E));
+      if (edge && (kr_lo + ((i >> 1) & 1) * 8 > q0 + c || q0 + c >= seg))
+        p = 0.f;
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - delta_s[c]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's q rows, each on the hi
+    // and lo bf16 parts of its A operand; k step kk is q rows 16kk..
+    uint32_t fr[BQ / 16][4][4];   // k step, (P hi, P lo, dS hi, dS lo)
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h) {
+      fence_regs(dk_acc[h]);
+      fence_regs(dv_acc[h]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        split(st[8 * kk + 2 * i], st[8 * kk + 2 * i + 1], fr[kk][0][i],
+              fr[kk][1][i]);
+        split(dpt[8 * kk + 2 * i], dpt[8 * kk + 2 * i + 1], fr[kk][2][i],
+              fr[kk][3][i]);
+      }
+      wgmma_fence();   // fr[kk] was written since the last fence
+#pragma unroll
+      for (int h = 0; h < SLABS; ++h) {
+        const int at = h * BQ * 64 + kk * 16 * 64;
+        wgmma_m64n64k16<1>(dv_acc[h], fr[kk][0], sw128_desc(dost + at));
+        wgmma_m64n64k16<1>(dv_acc[h], fr[kk][1], sw128_desc(dost + at));
+        wgmma_m64n64k16<1>(dk_acc[h], fr[kk][2], sw128_desc(qst + at));
+        wgmma_m64n64k16<1>(dk_acc[h], fr[kk][3], sw128_desc(qst + at));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h) {
+      fence_regs(dk_acc[h]);
+      fence_regs(dv_acc[h]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fence_regs(fr[kk][j]);
+    __syncthreads();   // this stage and delta are free for tile t + 2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kr_lo + r * 8;
+    if (row >= seg) continue;
+    const long long at = kvoff + (long long)row * D + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        store_pair(dk + at + h * 64 + j * 8, dk_acc[h][4 * j + 2 * r] * scale,
+                   dk_acc[h][4 * j + 2 * r + 1] * scale);
+        store_pair(dv + at + h * 64 + j * 8, dv_acc[h][4 * j + 2 * r],
+                   dv_acc[h][4 * j + 2 * r + 1]);
+      }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
+                           const void* o, const void* g, const void* lse,
+                           void* dk, void* dv, int bh, int groups, int seg,
+                           float scale, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = dkv_mma_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (seg + DKV_BK - 1) / DKV_BK);
+  flash_bwd_dkv_mma_kernel<D><<<grid, DKV_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), groups, seg, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o, g (= dO) and dq [bh, groups*seg, d]; k, v [bh, seg, d];
@@ -406,7 +661,9 @@ extern "C" int psdt_flash_bwd_dq(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// As psdt_flash_bwd_dq; dk and dv are [bh, seg, d] like k and v.
+// As psdt_flash_bwd_dq; dk and dv are [bh, seg, d] like k and v.  bf16
+// takes the tensor-core kernel, which needs every pointer 16-byte
+// aligned.
 extern "C" int psdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* o, const void* g,
                                   const void* lse, void* dk, void* dv, int bh,
@@ -414,14 +671,13 @@ extern "C" int psdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, o, g, lse, dk, dv,
-                                                   bh, groups, seg, scale, s)
+    return is_bf16 ? launch_dkv_mma<64>(q, k, v, o, g, lse, dk, dv, bh,
+                                        groups, seg, scale, s)
                    : launch_dkv<float, 64>(q, k, v, o, g, lse, dk, dv, bh,
                                            groups, seg, scale, s);
   if (d == 128)
-    return is_bf16 ? launch_dkv<__nv_bfloat16, 128>(q, k, v, o, g, lse, dk,
-                                                    dv, bh, groups, seg, scale,
-                                                    s)
+    return is_bf16 ? launch_dkv_mma<128>(q, k, v, o, g, lse, dk, dv, bh,
+                                         groups, seg, scale, s)
                    : launch_dkv<float, 128>(q, k, v, o, g, lse, dk, dv, bh,
                                             groups, seg, scale, s);
   return cudaErrorInvalidValue;

@@ -3,50 +3,61 @@
 //
 // Replaces the Pallas TPU kernel _flash_fwd_kernel
 // (parameter_server_distributed_tpu/ops/pallas/flash_attention.py:86,
-// driven by _flash_fwd :126).  Same function: q is scaled by 1/sqrt(D)
-// before Q K^T; scores, the running max m, the running sum l and the
-// output accumulator are f32; masked scores are -1e30; O is written once
-// in the input type and the per-row logsumexp lse = m + log(max(l, 1e-30))
-// in f32.  Under the GQA fold q is [BH, G*S, D] against k/v [BH, S, D]:
-// the q-rows axis holds G segments of S rows that share one K/V sequence,
-// and a row's causal position is its position inside its segment.
+// driven by _flash_fwd :126).  Same function: scores s = q.k / sqrt(D),
+// the running max m, the running sum l and the output accumulator are
+// f32; masked scores are -1e30; O is written once in the input type and
+// the per-row logsumexp lse = m + log(max(l, 1e-30)) in f32.  Under the
+// GQA fold q is [BH, G*S, D] against k/v [BH, S, D]: the q-rows axis holds
+// G segments of S rows that share one K/V sequence, and a row's causal
+// position is its position inside its segment.
 //
 // What bounds it on this card.  Causal prefill does 2*BH*G*S^2*D
 // multiply-adds against 2*BH*S*(G+2)*D input elements, so at the serving
-// shapes (S >= 256) it is bound by operations, not bytes: the bound is the
-// tensor-core rate.  This first design does not reach for that bound.  It
-// is the simple, correct form:
-//  - one thread block owns one (bh, segment, 64-row q tile) and loops
-//    over 64-row k/v tiles up to its own causal frontier, so blocks past
-//    the diagonal are never loaded or computed and nothing carries between
-//    blocks (the TPU's sequential grid, bps arithmetic and clamped index
-//    maps have no counterpart);
-//  - q, k and v tiles are staged in shared memory as f32 (row stride padded
-//    by one word, so column walks hit distinct banks); the products run on
-//    the CUDA cores in f32, which keeps f32 inputs within the f32 tolerance;
-//  - q tiles are issued longest-frontier first, so the long causal rows
-//    do not trail at the end of the grid.
-// Tensor cores (mma.sync / wgmma), TMA staging and a pipelined k/v ring
-// are the later work that moves it toward the bound.
+// and training shapes (S >= 256) it is bound by operations: the bound is
+// the tensor-core rate.  Two kernels, picked by the input type:
+//
+// bf16 (flash_fwd_mma_kernel, the main path):
+//  - a block of two warpgroups owns one 64-row q tile position in two
+//    segments of one kv head (warpgroup 0 segment 2p, warpgroup 1 segment
+//    2p + 1; with G odd the last pair's second warpgroup idles), so both
+//    share every K/V tile and stop at the same causal frontier;
+//  - Q K^T and P V run on the tensor cores as warpgroup MMAs (wgmma
+//    m64n64k16, bf16 inputs, f32 accumulator; flash_mma.cuh): Q as
+//    register fragments, K and V through descriptors on 128B-swizzled
+//    tiles (K K-major, V MN-major).  The scores are exact products summed
+//    in f32, the 1/sqrt(D) scale is applied to them in f32, and the
+//    online softmax stays in registers; P is rounded to bf16 as the
+//    register A operand of P V (l sums the f32 P), which moves o by less
+//    than its own bf16 rounding;
+//  - K/V tiles (64 rows) stream through a two-stage cp.async ring, zero
+//    filling rows past the segment, the next tile's copy in flight during
+//    the current tile's products (TMA and a producer warp are the next
+//    step);
+//  - only the diagonal tile is masked; q tiles are issued longest
+//    frontier first, so the long causal rows do not trail at the end of
+//    the grid.
+//
+// f32 (flash_fwd_kernel, the small f32 models): products on the CUDA
+// cores in f32, which keeps f32 inputs within the f32 tolerance (bf16 or
+// TF32 products would not).  One thread block owns one (bh, segment,
+// 64-row q tile), stages q, k and v tiles in shared memory as f32 (row
+// stride padded by one word) and loops over 64-row k/v tiles up to its
+// own causal frontier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
 constexpr int BQ = 64;         // q rows per block
 constexpr int BK = 64;         // k/v rows per tile
 constexpr int THREADS = 256;   // 16 x 16 thread grid over a 64 x 64 tile
-constexpr float NEG_INF = -1e30f;
+using flash_mma::NEG_INF;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_floats() {
@@ -221,24 +232,242 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bf16: tensor cores (wgmma)
+
+constexpr int MMA_THREADS = 256;   // two warpgroups, one segment each
+constexpr int MQ = 64;             // q rows per segment per block
+constexpr int MK = 64;             // k/v rows per tile
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  // 1024 bytes of slack to align the swizzled k/v tiles; k and v
+  // [2 stages][MK][D] swizzled; q [2*MQ][D+8] padded; all bf16
+  return 1024 + (size_t)4 * MK * D * sizeof(__nv_bfloat16) +
+         (size_t)2 * MQ * flash_mma::row_stride<D>() * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int groups, int seg, float scale) {
+  using namespace flash_mma;
+  constexpr int DP = row_stride<D>();
+  constexpr int KS = D / 16;      // k steps of Q K^T
+  constexpr int SLABS = D / 64;   // 64-column slabs of a k/v row (and of O)
+  constexpr int TILE = MK * D;    // elements of one k or v tile
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ks = align1024(smem_raw);
+  bf16* vs = ks + 2 * TILE;
+  bf16* qs = vs + 2 * TILE;
+
+  const int pairs = (groups + 1) / 2;
+  const int bh = blockIdx.x / pairs;
+  const int tile = gridDim.y - 1 - blockIdx.y;   // longest frontier first
+  const int q0 = tile * MQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp / 4;                     // this warpgroup
+  const int g = 2 * (blockIdx.x % pairs) + half;
+  const bool active = g < groups;
+  const long long rows = (long long)groups * seg;
+  const long long qoff =
+      (long long)bh * rows + (long long)(active ? g : 0) * seg;
+  const bf16* kb = k + (long long)bh * seg * D;
+  const bf16* vb = v + (long long)bh * seg * D;
+
+  // k/v tile kt into stage st, swizzled; rows past the segment zero-filled
+  auto load_kv = [&](int kt, int st) {
+    load_tile_sw128<MK, D, MMA_THREADS>(ks + st * TILE, kb, kt * MK, seg,
+                                        threadIdx.x);
+    load_tile_sw128<MK, D, MMA_THREADS>(vs + st * TILE, vb, kt * MK, seg,
+                                        threadIdx.x);
+  };
+  // each warpgroup copies its own segment's q rows (none when idle), then
+  // all threads copy k/v tile 0: one group
+  load_tile<MQ, D, 128>(qs + half * MQ * DP, q + qoff * D, q0,
+                        active ? seg : 0, threadIdx.x % 128);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this thread's rows (segment-relative): r_lo (c0, c1) and r_lo + 8
+  const int r_lo = q0 + (warp % 4) * 16 + lane / 4;
+  const float sl2 = scale * LOG2E;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[SLABS][32];
+#pragma unroll
+  for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  const int n_k = (min(q0 + MQ, seg) - 1) / MK + 1;   // up to the frontier
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {
+      load_kv(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (active) {
+      const bf16* kst = ks + (kt & 1) * TILE;
+      const bf16* vst = vs + (kt & 1) * TILE;
+      // Q fragments are read again for every tile: a register A operand
+      // carried from one tile's wgmma to the next was found corrupted
+      uint32_t qa[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a<D>(qa[kk], qs + half * MQ * DP, (warp % 4) * 16, kk * 16,
+                  lane);
+
+      // S = Q K^T: 64 rows x 64 keys for the warpgroup, 16 rows a warp;
+      // s[4j + e] is n tile j in the m16n8 C layout
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_m64n64k16<0>(
+            s, qa[kk], sw128_desc(kst + (kk / 4) * MK * 64 + (kk % 4) * 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) fence_regs(qa[kk]);
+
+      // the diagonal tile (the last) masks keys past the row; keys past
+      // the segment lie past every live row there too
+      if (kt == n_k - 1) {
+        const int k0 = kt * MK;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1) >
+              r_lo + ((i >> 1) & 1) * 8)
+            s[i] = NEG_INF;
+      }
+
+      // online softmax over the tile; the four lanes of a row reduce the
+      // max by shuffles and keep partial sums of l
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i] * scale);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float alpha[2], ml2[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f((m[r] - mx[r]) * LOG2E);
+        m[r] = mx[r];
+        ml2[r] = mx[r] * LOG2E;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = exp2f(fmaf(s[i], sl2, -ml2[(i >> 1) & 1]));
+        s[i] = p;
+        l[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[h][i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P rounded to bf16 as the register A operand (n tiles
+      // 2kk and 2kk + 1 of S are k step kk), V MN-major by slab
+      uint32_t pa[MK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < MK / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+#pragma unroll
+      for (int h = 0; h < SLABS; ++h) fence_regs(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < MK / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < SLABS; ++h)
+          wgmma_m64n64k16<1>(acc[h], pa[kk],
+                             sw128_desc(vst + h * MK * 64 + kk * 16 * 64));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < SLABS; ++h) fence_regs(acc[h]);
+#pragma unroll
+      for (int kk = 0; kk < MK / 16; ++kk) fence_regs(pa[kk]);
+    }
+    __syncthreads();   // this stage is free for tile kt + 2
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  bf16* ob = o + qoff * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + r * 8;
+    if (row >= seg) continue;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(ob + (long long)row * D + h * 64 + j * 8 + (lane % 4) * 2,
+                   acc[h][4 * j + 2 * r] * inv,
+                   acc[h][4 * j + 2 * r + 1] * inv);
+    if (lane % 4 == 0) lse[qoff + row] = m[r] + logf(l[r]);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int bh, int groups, int seg, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh * ((groups + 1) / 2), (seg + MQ - 1) / MQ);
+  using bf16 = __nv_bfloat16;
+  flash_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), groups, seg, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [bh, groups*seg, d], k/v [bh, seg, d], o like q, lse [bh, 1, groups*seg]
-// f32; all contiguous on one device.  is_bf16: 1 for bf16, 0 for f32.
-// Returns the launch's cudaError_t (0 on success).
+// f32; all contiguous on one device, 16-byte aligned.  is_bf16: 1 for bf16
+// (the tensor-core kernel), 0 for f32.  Returns the launch's cudaError_t
+// (0 on success).
 extern "C" int psdt_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bh, int groups, int seg,
                               int d, int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, bh, groups,
-                                               seg, scale, s)
+    return is_bf16 ? launch_mma<64>(q, k, v, o, lse, bh, groups, seg, scale, s)
                    : launch<float, 64>(q, k, v, o, lse, bh, groups, seg,
                                        scale, s);
   if (d == 128)
-    return is_bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, lse, bh, groups,
-                                                seg, scale, s)
-                   : launch<float, 128>(q, k, v, o, lse, bh, groups, seg,
-                                        scale, s);
+    return is_bf16
+               ? launch_mma<128>(q, k, v, o, lse, bh, groups, seg, scale, s)
+               : launch<float, 128>(q, k, v, o, lse, bh, groups, seg, scale,
+                                    s);
   return cudaErrorInvalidValue;
 }

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_kernels/`` beside the
 package, as a shared library loaded with ``ctypes``.  The library's file
-name carries a hash of its source and flags, so an edited source never
-loads a stale build, and processes that share a checkout share a build.
+name carries a hash of its source, of every ``csrc/`` header it includes
+(``#include "x.cuh"``, followed through headers) and of the flags, so an
+edited source or header never loads a stale build, and processes that
+share a checkout share a build.
 Nothing here runs at import: the CPU has no ``nvcc``, and the CPU paths
 never call :func:`load`.
 """
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +28,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
 SOURCES = ("flash_fwd", "flash_bwd", "fused_update")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -45,10 +50,26 @@ def nvcc() -> str:
                        "the CUDA toolkit (set CUDA_HOME)")
 
 
+def inputs(name: str) -> list[str]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` that it includes,
+    directly or through another header, as file names in ``csrc/``."""
+    found, todo = [], [f"{name}.cu"]
+    while todo:
+        fname = todo.pop()
+        if fname in found:
+            continue
+        found.append(fname)
+        with open(os.path.join(CSRC, fname), encoding="utf-8") as f:
+            todo += [h for h in _INCLUDE.findall(f.read())
+                     if os.path.exists(os.path.join(CSRC, h))]
+    return found
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in sorted(inputs(name)):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -12,6 +12,18 @@ PyTorch versions of the same functions.  There is no other fallback, and
 the JAX functions' ``interpret`` argument has no counterpart: the
 tensor's device picks the path.
 
+What the kernels compute in each type.  f32 inputs take CUDA-core
+kernels whose products are f32 throughout.  bf16 inputs take tensor-core
+kernels for the forward and dK/dV (``csrc/flash_mma.cuh``): the score
+products QK^T and dO V^T are exact products of the bf16 inputs summed in
+f32; the forward rounds P to bf16 before P V; dK/dV split P and dS into
+bf16 hi + lo parts (lo = bf16(x - hi)) and run each of P^T dO and dS^T Q
+as two products, which keeps them to ~2^-17 of the f32 values.  Softmax
+statistics, lse and delta are f32; each output is rounded once to bf16.
+dQ stays a CUDA-core kernel in both types.  The kernels take contiguous
+operands whose data pointers are 16-byte aligned (their tile copies move
+16 bytes a thread) and refuse others.
+
 :class:`_Flash` takes the place of the JAX ``custom_vjp``: it saves only
 q, k, v, o and lse, and its backward is the two backward kernels.
 """
@@ -126,6 +138,14 @@ def _check_cuda(*xs: torch.Tensor) -> None:
                          f"got {q.shape[-1]}")
 
 
+def _check_aligned(*xs: torch.Tensor) -> None:
+    """The kernels copy tiles 16 bytes a thread: every operand's data
+    pointer must be 16-byte aligned (a view at an odd offset is not)."""
+    bad = [i for i, x in enumerate(xs) if x.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"flash operands {bad} are not 16-byte aligned")
+
+
 def _launch(fn, name: str, *args, device: torch.device) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -139,6 +159,7 @@ def _flash_fwd_cuda(q, k, v, seg: int):
     _check_cuda(q, k, v)
     bh, sq, d = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_aligned(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, 1, sq), dtype=torch.float32, device=q.device)
     _launch(_lib("flash_fwd").psdt_flash_fwd, "flash_fwd",
@@ -157,6 +178,7 @@ def _bwd_args(q, k, v, o, lse, do, seg: int) -> tuple[list, tuple]:
         raise TypeError("flash lse must be float32 on the operands' device")
     bh, sq, d = q.shape
     ins = [x.contiguous() for x in (q, k, v, o, do, lse)]
+    _check_aligned(*ins)
     return ins, (bh, sq // seg, seg, d, int(q.dtype == torch.bfloat16),
                  1.0 / math.sqrt(d))
 

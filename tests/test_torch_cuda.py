@@ -44,7 +44,12 @@ def card():
 @pytest.mark.parametrize("dtype,kv,groups,d,s", [
     (torch.bfloat16, 4, 4, 64, 512), (torch.bfloat16, 16, 1, 64, 256),
     (torch.bfloat16, 4, 2, 128, 256), (torch.float32, 4, 4, 64, 256),
-    (torch.float32, 2, 1, 128, 96), (torch.float32, 1, 3, 64, 200)])
+    (torch.float32, 2, 1, 128, 96), (torch.float32, 1, 3, 64, 200),
+    # the bf16 tensor-core kernel: the llama_350m training shape (B=8
+    # folded into kv), D=128 with G=4, and ragged segments (S=200) whose
+    # last q tile runs into the next segment's rows
+    (torch.bfloat16, 32, 4, 64, 1024), (torch.bfloat16, 2, 4, 128, 512),
+    (torch.bfloat16, 2, 3, 64, 200), (torch.bfloat16, 2, 3, 128, 200)])
 def test_kernel_matches_plain(card, dtype, kv, groups, d, s):
     gen = torch.Generator(device=card).manual_seed(0)
     q = torch.randn((kv, groups * s, d), generator=gen, device=card,
@@ -69,8 +74,8 @@ def test_kernel_matches_plain(card, dtype, kv, groups, d, s):
 def test_kernel_refuses_grad_and_bad_shapes(card):
     """Gradients flow through the kernels (the autograd Function's
     backward launches dQ and dK/dV once each and matches dense attention
-    at the reference's f32 gradient tolerance); head_dim and dtype outside
-    the kernels' contract are refused."""
+    at the reference's f32 gradient tolerance); head_dim, dtype and
+    alignment outside the kernels' contract are refused."""
     gen = torch.Generator(device=card).manual_seed(3)
     q = torch.randn((1, 128, 4, 64), generator=gen, device=card)
     k, v = (torch.randn((1, 128, 2, 64), generator=gen, device=card)
@@ -92,6 +97,14 @@ def test_kernel_refuses_grad_and_bad_shapes(card):
     h = torch.zeros((1, 128, 64), device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa._flash_fwd(h, h, h, 128, 128)
+    # a contiguous view 2 bytes into its storage: the tile copies need
+    # 16-byte aligned operands
+    odd = torch.zeros(128 * 64 + 1, device=card,
+                      dtype=torch.bfloat16)[1:].view(1, 128, 64)
+    before = fa.launches["flash_fwd"]
+    with pytest.raises(ValueError, match="aligned"):
+        fa._flash_fwd(odd, odd, odd, 128, 128)
+    assert fa.launches["flash_fwd"] == before
 
 
 @pytest.mark.cuda
@@ -126,7 +139,8 @@ def test_model_and_server_through_kernel(card):
     (torch.bfloat16, 4, 4, 64, 1024), (torch.float32, 4, 4, 64, 1024),
     (torch.bfloat16, 2, 3, 64, 200), (torch.float32, 2, 2, 128, 96),
     (torch.bfloat16, 2, 2, 128, 200), (torch.float32, 1, 3, 64, 200),
-    (torch.bfloat16, 8, 1, 128, 96)])
+    (torch.bfloat16, 8, 1, 128, 96), (torch.bfloat16, 2, 4, 128, 512),
+    (torch.bfloat16, 2, 3, 128, 200), (torch.bfloat16, 32, 4, 64, 1024)])
 def test_backward_kernels_match_plain(card, dtype, kv, groups, d, s):
     """dQ and dK/dV against flash_bwd_reference on the same inputs, with G
     segments whose length need not be a multiple of the 64-row tile."""
