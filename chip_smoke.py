@@ -302,17 +302,24 @@ def llama_store(torch, shapes, gen, abs_=False):
         for name, shape in shapes.items()}
 
 
+def update_launches(fu, shapes) -> int:
+    """Launches of one update over the store: the planner's tables."""
+    sizes = [math.prod(s) for s in shapes.values()]
+    return len(fu.plan(sizes, [True] * len(sizes)))
+
+
 def check_updates(torch, fu, shapes, gen) -> dict[str, float]:
     """Each update kernel against its plain version over the full
     llama_350m store (219 f32 tensors), slots included, within rtol 1e-5,
-    atol 1e-7 (the reference's tolerance).  Returns each kernel's largest
-    absolute error."""
+    atol 1e-7 (the reference's tolerance), in the planner's number of
+    launches.  Returns each kernel's largest absolute error."""
     p, g = llama_store(torch, shapes, gen), llama_store(torch, shapes, gen)
     max_err = {}
     for rule in ("sgd", "momentum", "adam"):
         slots = [llama_store(torch, shapes, gen, abs_=(i == 1))
                  for i in range({"sgd": 0, "momentum": 1, "adam": 2}[rule])]
         ref_slots = [{n: x.clone() for n, x in s.items()} for s in slots]
+        fu.reset_launches()
         with torch.inference_mode():
             if rule == "sgd":
                 out = fu.fused_sgd(p, g, 0.1)
@@ -328,6 +335,7 @@ def check_updates(torch, fu, shapes, gen) -> dict[str, float]:
                                             ref_slots[1][n], 1e-3, 0.9,
                                             0.999, 1e-8, *bc) for n in p}
             torch.cuda.synchronize()
+        n_launch = fu.launches[f"fused_{rule}"]
         pairs = [(out[n], ref[n]) for n in p] + [
             (s[n], r[n]) for s, r in zip(slots, ref_slots) for n in p]
         err = max(float((a - b).abs().max()) for a, b in pairs)
@@ -337,10 +345,15 @@ def check_updates(torch, fu, shapes, gen) -> dict[str, float]:
         emit({"phase": "kernel_vs_plain", "kernel": f"fused_{rule}",
               "tensors": len(p), "elements": sum(x.numel()
                                                  for x in p.values()),
+              "launches": n_launch,
+              "expected_launches": update_launches(fu, shapes),
               "max_abs_err": err, "bit_exact": exact, "rtol": 1e-5,
               "atol": 1e-7, "ok": ok})
         if not ok or not math.isfinite(err):
             fail(f"fused_{rule} disagrees with its plain version: {err}")
+        if n_launch != update_launches(fu, shapes):
+            fail(f"fused_{rule} took {n_launch} launches over the store, "
+                 f"not the planner's {update_launches(fu, shapes)}")
         max_err[f"fused_{rule}"] = err
     return max_err
 
@@ -431,11 +444,24 @@ def time_flash_train(torch, F, fa, gen) -> dict:
         dkv.append(cuda_ms(torch, lambda: fa._flash_bwd_dkv_cuda(*args)))
         plain_b2 = cuda_ms(torch, lambda: fa.flash_bwd_reference(*args),
                            iters=3)
+        # device-only times (kernels summed by the profiler over 5 calls):
+        # the event time of SDPA's backward also holds autograd's host
+        # work, which moves between runs
+        device = {name: device_profile(torch, fn) for name, fn in (
+            ("flash_fwd", lambda: fa._flash_fwd(q, k, v, 128, 128,
+                                                s // 128)),
+            ("flash_bwd_dq", lambda: fa._flash_bwd_dq_cuda(*args)),
+            ("flash_bwd_dkv", lambda: fa._flash_bwd_dkv_cuda(*args)),
+            ("sdpa_fwd", lambda: F.scaled_dot_product_attention(
+                q_l, k_l, v_l, is_causal=True, enable_gqa=True)))}
+    device["sdpa_bwd"] = device_profile(torch, sdpa_bwd)
     out = {}
-    for name, runs, plain, lib in (
-            ("flash_fwd", fwd, plain_f, lib_f),
-            ("flash_bwd_dq", dq, min(plain_b, plain_b2), lib_b),
-            ("flash_bwd_dkv", dkv, min(plain_b, plain_b2), lib_b)):
+    for name, runs, plain, lib, lib_dev in (
+            ("flash_fwd", fwd, plain_f, lib_f, device["sdpa_fwd"]),
+            ("flash_bwd_dq", dq, min(plain_b, plain_b2), lib_b,
+             device["sdpa_bwd"]),
+            ("flash_bwd_dkv", dkv, min(plain_b, plain_b2), lib_b,
+             device["sdpa_bwd"])):
         if name == "flash_fwd":
             bound_ms, bound_by = attention_bound(b, s, heads, kv, d,
                                                  "bfloat16")
@@ -447,15 +473,34 @@ def time_flash_train(torch, F, fa, gen) -> dict:
         emit({"phase": "times", "kernel": name, "batch": b, "seq": s,
               "heads": heads, "kv_heads": kv, "head_dim": d,
               "dtype": "bfloat16", "ms_runs": runs, **out[name],
+              "device_ms": device[name]["ms"],
+              "device_events": device[name]["events"],
+              "library_device_ms": lib_dev["ms"], "library_device": lib_dev,
               "library": ("SDPA forward" if name == "flash_fwd" else
                           "SDPA backward (autograd, dq+dk+dv)")})
     return out
 
 
+def device_profile(torch, fn, calls: int = 5) -> dict:
+    """Device time of one call of ``fn`` (every kernel the profiler saw
+    over ``calls`` calls, summed, over ``calls``), the kernel records per
+    call (a record the trace lost shows as a fraction here), the window's
+    wall time per call and its largest kernels."""
+    def run():
+        for _ in range(calls):
+            fn()
+    prof = profile_window(torch, run, {})
+    return {"ms": prof["kernel_ms"] / calls,
+            "events": prof["kernel_events"] / calls,
+            "window_ms": 1e3 * prof["window_s"] / calls,
+            "top": prof["top"][:3]}
+
+
 def time_updates(torch, fu, shapes, gen) -> dict:
-    """Each update over the full llama_350m store (one launch per tensor),
-    beside the plain version, the bound and torch.optim's fused
-    optimizer over the same tensor list (Adam, SGD, SGD with momentum)."""
+    """Each update over the full llama_350m store (the planner's launches,
+    checked), beside the plain version, the bound and torch.optim's fused
+    optimizer over the same tensor list (Adam, SGD, SGD with momentum),
+    with the kernel's and torch.optim's device-only times."""
     n = sum(math.prod(s) for s in shapes.values())
     out = {}
     for rule in ("sgd", "momentum", "adam"):
@@ -499,14 +544,20 @@ def time_updates(torch, fu, shapes, gen) -> dict:
                torch.optim.SGD(params, lr=1e-3, fused=True,
                                momentum=0.9 if rule == "momentum" else 0.0))
         library = cuda_ms(torch, opt.step, iters=10)
+        # its device-only time (the event time also holds its host work)
+        library_dev = device_profile(torch, opt.step)
         del opt, params
+        fu.reset_launches()
         with torch.inference_mode():
             runs.append(cuda_ms(torch, kernel, iters=10))
+            per_call = fu.launches[f"fused_{rule}"] / 13   # 3 warm-up + 10
             plain2 = cuda_ms(torch, plain, iters=3)
-            # the kernels' own device time in one apply (the event time
-            # above also holds the host's per-tensor launch gaps)
-            device_ms = profile_window(torch, kernel, {
-                "k": "update_kernel"})["group_ms"]
+            # the kernel's own device time in one apply (the event time
+            # above also holds the host's work between applies)
+            kernel_dev = device_profile(torch, kernel)
+        if per_call != update_launches(fu, shapes):
+            fail(f"fused_{rule} took {per_call} launches an apply, not the "
+                 f"planner's {update_launches(fu, shapes)}")
         bound_ms, bound_by = bound(UPDATE_FLOPS[rule] * n,
                                    UPDATE_BYTES[rule] * n, "float32")
         out[f"fused_{rule}"] = dict(ms=min(runs), plain_ms=min(plain1, plain2),
@@ -514,8 +565,12 @@ def time_updates(torch, fu, shapes, gen) -> dict:
                                     bound_by=bound_by)
         emit({"phase": "times", "kernel": f"fused_{rule}",
               "tensors": len(names), "elements": n, "ms_runs": runs,
+              "launches_per_apply": per_call,
               "plain_ms_runs": [plain1, plain2],
-              "device_ms": device_ms["k"],
+              "device_ms": kernel_dev["ms"],
+              "device_events": kernel_dev["events"],
+              "library_device_ms": library_dev["ms"],
+              "library_device": library_dev,
               "library": f"torch.optim.{'Adam' if rule == 'adam' else 'SGD'}"
                          f"(fused=True)", **out[f"fused_{rule}"]})
         del p, g, slots
@@ -538,7 +593,11 @@ def profile_window(torch, fn, names: dict[str, str]) -> dict:
         window = time.perf_counter() - t1
     by_name: dict[str, list] = {}
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # a record_function range (torch.optim's "Optimizer.step#...")
+        # is mirrored on the device timeline over the kernels it holds:
+        # not a kernel of its own
+        if evt.device_type == DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
             entry = by_name.setdefault(evt.name, [0.0, 0])
             entry[0] += evt.time_range.elapsed_us() / 1e3
             entry[1] += 1
@@ -551,6 +610,7 @@ def profile_window(torch, fn, names: dict[str, str]) -> dict:
     groups = {group: [sum(x[i] for name, x in by_name.items() if key in name)
                       for i in (0, 1)] for group, key in names.items()}
     return {"window_s": window, "kernel_ms": busy_ms,
+            "kernel_events": sum(n for _, n in by_name.values()),
             "device_busy_share": busy_ms / 1e3 / window,
             "group_ms": {g: ms for g, (ms, _) in groups.items()},
             "group_events": {g: n for g, (_, n) in groups.items()},
@@ -760,11 +820,12 @@ def train(torch, np, fa, fu) -> dict:
         other_s[rule] = time.perf_counter() - t0
     launches = {**fa.launches, **fu.launches}
     peak = torch.cuda.max_memory_allocated() / 1e9
+    per_apply = update_launches(fu, model.param_shapes())   # the tables
     expected = {"flash_fwd": 2 * c.n_layers * steps,    # remat recompute
                 "flash_bwd_dq": c.n_layers * steps,
                 "flash_bwd_dkv": c.n_layers * steps,
-                "fused_sgd": n_tensors, "fused_momentum": n_tensors,
-                "fused_adam": n_tensors * steps}
+                "fused_sgd": per_apply, "fused_momentum": per_apply,
+                "fused_adam": per_apply * steps}
     # steady state: the steps after the first (which uploads the host
     # store and warms the allocator and the GEMM heuristics)
     step_s = float(np.median([g + a for g, a in zip(grad_s[1:],
@@ -897,9 +958,10 @@ def main() -> int:
     tensor_core = tensor_core_counts(build)
     emit({"phase": "build", "seconds": seconds, "wall_s": wall,
           "ptxas": ptxas, "tensor_core_sass": tensor_core})
-    # the bf16 forward and dK/dV kernels run their products on the tensor
-    # cores
+    # the bf16 forward, dQ and dK/dV kernels run their products on the
+    # tensor cores
     for src_name, kernel in (("flash_fwd", "flash_fwd_mma_kernel"),
+                             ("flash_bwd", "flash_bwd_dq_mma_kernel"),
                              ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
         for dim in (64, 128):
             if not tensor_core[src_name]["by_kernel"].get(

@@ -4,10 +4,12 @@ parameter_server_distributed_tpu/async_sgd/device_optimizer.py.
 
 The optimizer keeps its slots on the card and applies updates through
 the fused-update kernels (ops/fused_update.py, ``csrc/fused_update.cu``):
-one launch per tensor.  Slots are updated in place, the port's form of
+one launch over the whole store per apply (one per planned table where
+a store outgrows one).  Slots are updated in place, the port's form of
 the JAX buffer donation.  Params are never updated in place: the PS keeps
 serving previously returned param dicts concurrently, and those may alias
-the apply inputs, so each apply returns fresh tensors.
+the apply inputs, so each apply returns fresh tensors (views into one new
+buffer).
 
 ``DeviceOptimizer`` (the optax family, with ``adamw_bf16``) and
 ``ShardedDeviceOptimizer`` are not ported yet (ROADMAP.md Queue 1,

@@ -3,7 +3,8 @@
 //
 // Replaces the two Pallas TPU kernels of _flash_bwd
 // (parameter_server_distributed_tpu/ops/pallas/flash_attention.py:244):
-//  - _flash_bwd_dq_kernel (:162)  -> flash_bwd_dq_kernel below;
+//  - _flash_bwd_dq_kernel (:162)  -> flash_bwd_dq_mma_kernel (bf16) and
+//    flash_bwd_dq_kernel (f32) below;
 //  - _flash_bwd_dkv_kernel (:202) -> flash_bwd_dkv_mma_kernel (bf16) and
 //    flash_bwd_dkv_kernel (f32) below.
 // Same function: the forward saved only O and the per-row logsumexp, so
@@ -49,15 +50,39 @@
 //    while S^T and dP^T run;
 //  - k tile 0, which walks the most q tiles, starts first.
 //
-// f32 (flash_bwd_dkv_kernel) and dQ in both types (flash_bwd_dq_kernel):
-// the products run on the CUDA cores in f32 (f32 inputs must stay within
-// the f32 tolerance, which bf16 or TF32 products would miss).  dQ: one
-// thread block owns one (bh, segment, 64-row q tile); it computes delta
-// for its rows once, then loops over 64-row k/v tiles up to its own
-// causal frontier and accumulates dQ in registers.  f32 dK/dV: the block
-// and walk of the bf16 kernel.  Tiles are staged in shared memory as f32
-// (row stride padded by one word).  A tensor-core dQ, with the same
-// hi/lo split of dS for dS K, is the next step.
+// dQ in bf16 (flash_bwd_dq_mma_kernel, the main path) is the dK/dV
+// design with the roles of q and k swapped: one block, a warpgroup, owns
+// one (bh, segment, 64-row q tile), each warp 16 q rows, and walks the
+// 64-row k tiles from 0 up to its causal frontier with dQ in registers
+// (q tiles are issued longest frontier first, so the long rows do not
+// trail at the end of the grid).  Per k tile it runs four products where
+// the bound counts three:
+//  - S = Q K^T and dP = dO V^T with both operands in 128B-swizzled shared
+//    tiles (K-major); Q, dO and O are copied once per block, K and V
+//    stream through a two-stage cp.async ring that zero-fills rows past
+//    the segment's end;
+//  - P = exp(S*scale - lse) and dS = P (dP - delta) in f32 registers,
+//    masked only on the diagonal tile and the segment's last q tile;
+//    each thread needs lse and delta of just its two rows, and delta =
+//    rowsum(dO * O) is taken from the staged tiles while the first
+//    tile's S and dP run;
+//  - dQ += dS K as two products on hi = bf16(dS) and lo = bf16(dS - hi)
+//    (register A operands; the swizzled K tile read MN-major), for the
+//    same reason as dK/dV: one bf16 rounding of dS leaves dq outside the
+//    bf16 tolerance; the scale is applied once at the end.
+// One warpgroup a block keeps every product's accumulator, dQ's 64
+// (D=128) among them, in registers with no spills; blocks of other
+// segments and tiles hide one another's latency on the SM.
+//
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the products run on
+// the CUDA cores in f32 (f32 inputs must stay within the f32 tolerance,
+// which bf16 or TF32 products would miss).  dQ: one thread block owns one
+// (bh, segment, 64-row q tile); it computes delta for its rows once, then
+// loops over 64-row k/v tiles up to its own causal frontier and
+// accumulates dQ in registers.  dK/dV: the block and walk of the bf16
+// kernel.  Tiles are staged in shared memory as f32 (row stride padded by
+// one word).  The C entry points pick the kernel by type, so one call is
+// one launch in either.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,13 +96,7 @@ constexpr int BK = 64;         // k/v rows per tile
 constexpr int THREADS = 256;   // 16 x 16 thread grid over a 64 x 64 tile
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Stage rows [r0, r0 + 64) of a [rows_total, D] operand into a padded f32
 // tile; rows at or past `limit` read as zero.
@@ -637,11 +656,225 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- dQ in bf16: tensor cores (wgmma)
+
+constexpr int DQ_THREADS = 128;   // one warpgroup, 16 q rows a warp
+constexpr int DQ_BQ = 64;         // q rows per block
+constexpr int DQ_BK = 64;         // k/v rows per tile
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // 1024 bytes of slack to align the swizzled tiles; q, dO, O [BQ][D];
+  // k, v [2 stages][BK][D], all bf16; then delta [BQ] f32
+  return 1024 + (size_t)(3 * DQ_BQ + 4 * DQ_BK) * D * sizeof(__nv_bfloat16) +
+         DQ_BQ * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS)
+flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        __nv_bfloat16* __restrict__ dq, int groups, int seg,
+                        float scale) {
+  using namespace flash_mma;
+  constexpr int BQ = DQ_BQ, BK = DQ_BK;
+  constexpr int KS = D / 16;          // k steps of Q K^T and dO V^T
+  constexpr int SLABS = D / 64;       // 64-column slabs of a row
+  constexpr int KT = BK * D;          // elements of one k or v tile
+  constexpr int TPR = DQ_THREADS / BQ;   // threads per row for delta
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = align1024(smem_raw);
+  bf16* dos = qs + BQ * D;
+  bf16* os = dos + BQ * D;
+  bf16* kvs = os + BQ * D;            // [2 stages][k, v]
+  float* delta_s = reinterpret_cast<float*>(kvs + 4 * KT);
+
+  const int bh = blockIdx.x / groups;
+  const int seg_i = blockIdx.x % groups;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest first
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const long long rows = (long long)groups * seg;
+  const long long qoff = ((long long)bh * rows + (long long)seg_i * seg) * D;
+  const bf16* kb = k + (long long)bh * seg * D;
+  const bf16* vb = v + (long long)bh * seg * D;
+
+  // k/v tile kt into stage kt & 1; rows past the segment zero-filled
+  auto load_kv = [&](int kt) {
+    bf16* st = kvs + (kt & 1) * 2 * KT;
+    load_tile_sw128<BK, D, DQ_THREADS>(st, kb, kt * BK, seg, tid);
+    load_tile_sw128<BK, D, DQ_THREADS>(st + KT, vb, kt * BK, seg, tid);
+  };
+  load_tile_sw128<BQ, D, DQ_THREADS>(qs, q + qoff, q0, seg, tid);
+  load_tile_sw128<BQ, D, DQ_THREADS>(dos, g + qoff, q0, seg, tid);
+  load_tile_sw128<BQ, D, DQ_THREADS>(os, o + qoff, q0, seg, tid);
+  load_kv(0);
+  cp_async_commit();
+
+  // this thread's q rows (segment-relative): r_lo (c0, c1) and r_lo + 8,
+  // with their lse in log2 units
+  const int r_lo = q0 + warp * 16 + lane / 4;
+  const float* lb = lse + (long long)bh * rows + (long long)seg_i * seg;
+  float lse2[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    lse2[r] = r_lo + 8 * r < seg ? lb[r_lo + 8 * r] * LOG2E : 0.f;
+  const float sl2 = scale * LOG2E;
+  float acc[SLABS][32];
+#pragma unroll
+  for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  const int n_k = (min(q0 + BQ, seg) - 1) / BK + 1;   // up to the frontier
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) {
+      load_kv(kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int k0 = kt * BK;
+    const bf16* kst = kvs + (kt & 1) * 2 * KT;
+    const bf16* vst = kst + KT;
+
+    // S = Q K^T and dP = dO V^T: 64 q rows x 64 k columns, s[4j + e] and
+    // dp[4j + e] for k column tile j
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int at = (kk / 4) * 64 * 64 + (kk % 4) * 16;   // BQ = BK = 64
+      wgmma_ss_m64n64k16(s, sw128_desc(qs + at), sw128_desc(kst + at));
+      wgmma_ss_m64n64k16(dp, sw128_desc(dos + at), sw128_desc(vst + at));
+    }
+    wgmma_commit();
+
+    if (kt == 0) {
+      // delta = rowsum(dO * O) for the tile's rows while the products run
+      const int r = tid / TPR, part = tid % TPR;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = part * (D / 8 / TPR); c < (part + 1) * (D / 8 / TPR); ++c) {
+        const int at = (c / 8) * BQ * 64 + sw128(r, c % 8);
+        const uint4 a = *reinterpret_cast<const uint4*>(dos + at);
+        const uint4 b = *reinterpret_cast<const uint4*>(os + at);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(a2[e]);
+          const float2 y = __bfloat1622float2(b2[e]);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < TPR; off *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (part == 0) delta_s[r] = sum;
+      __syncthreads();
+      delta[0] = delta_s[r_lo - q0];
+      delta[1] = delta_s[r_lo - q0 + 8];
+    }
+
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS (in dp); the diagonal tile and the segment's last q tile
+    // are masked (k column > q row, or q row past the segment)
+    const bool edge = kt == n_k - 1 || q0 + BQ > seg;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hr = (i >> 1) & 1;
+      const int row = r_lo + 8 * hr;
+      const int col = k0 + (i / 4) * 8 + (lane % 4) * 2 + (i & 1);
+      float p = exp2f(fmaf(s[i], sl2, -lse2[hr]));
+      if (edge && (col > row || row >= seg)) p = 0.f;
+      dp[i] = p * (dp[i] - delta[hr]);
+    }
+
+    // dQ += dS K on the hi and lo bf16 parts of dS; k step kk is k rows
+    // 16kk.. of the tile
+    uint32_t fr[BK / 16][2][4];   // k step, (dS hi, dS lo)
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h) fence_regs(acc[h]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1], fr[kk][0][i],
+              fr[kk][1][i]);
+      wgmma_fence();   // fr[kk] was written since the last fence
+#pragma unroll
+      for (int h = 0; h < SLABS; ++h) {
+        const int at = h * BK * 64 + kk * 16 * 64;
+        wgmma_m64n64k16<1>(acc[h], fr[kk][0], sw128_desc(kst + at));
+        wgmma_m64n64k16<1>(acc[h], fr[kk][1], sw128_desc(kst + at));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h) fence_regs(acc[h]);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) fence_regs(fr[kk][j]);
+    __syncthreads();   // this stage is free for tile kt + 2
+  }
+
+  bf16* out = dq + qoff;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + r * 8;
+    if (row >= seg) continue;
+    const long long at = (long long)row * D + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < SLABS; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        store_pair(out + at + h * 64 + j * 8, acc[h][4 * j + 2 * r] * scale,
+                   acc[h][4 * j + 2 * r + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v,
+                          const void* o, const void* g, const void* lse,
+                          void* dq, int bh, int groups, int seg, float scale,
+                          cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  const size_t smem = dq_mma_smem_bytes<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_mma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh * groups, (seg + DQ_BQ - 1) / DQ_BQ);
+  flash_bwd_dq_mma_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+      static_cast<const bf16*>(g), static_cast<const float*>(lse),
+      static_cast<bf16*>(dq), groups, seg, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, o, g (= dO) and dq [bh, groups*seg, d]; k, v [bh, seg, d];
 // lse [bh, 1, groups*seg] f32; all contiguous on one device.  is_bf16: 1
-// for bf16, 0 for f32.  Returns the launch's cudaError_t (0 on success).
+// for bf16, 0 for f32; bf16 takes the tensor-core kernel, which needs
+// every pointer 16-byte aligned.  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int psdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* o, const void* g,
                                  const void* lse, void* dq, int bh,
@@ -649,21 +882,19 @@ extern "C" int psdt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch_dq<__nv_bfloat16, 64>(q, k, v, o, g, lse, dq, bh,
-                                                  groups, seg, scale, s)
+    return is_bf16 ? launch_dq_mma<64>(q, k, v, o, g, lse, dq, bh, groups,
+                                       seg, scale, s)
                    : launch_dq<float, 64>(q, k, v, o, g, lse, dq, bh, groups,
                                           seg, scale, s);
   if (d == 128)
-    return is_bf16 ? launch_dq<__nv_bfloat16, 128>(q, k, v, o, g, lse, dq,
-                                                   bh, groups, seg, scale, s)
+    return is_bf16 ? launch_dq_mma<128>(q, k, v, o, g, lse, dq, bh, groups,
+                                        seg, scale, s)
                    : launch_dq<float, 128>(q, k, v, o, g, lse, dq, bh, groups,
                                            seg, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// As psdt_flash_bwd_dq; dk and dv are [bh, seg, d] like k and v.  bf16
-// takes the tensor-core kernel, which needs every pointer 16-byte
-// aligned.
+// As psdt_flash_bwd_dq; dk and dv are [bh, seg, d] like k and v.
 extern "C" int psdt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* o, const void* g,
                                   const void* lse, void* dk, void* dv, int bh,

@@ -14,13 +14,13 @@ tensor's device picks the path.
 
 What the kernels compute in each type.  f32 inputs take CUDA-core
 kernels whose products are f32 throughout.  bf16 inputs take tensor-core
-kernels for the forward and dK/dV (``csrc/flash_mma.cuh``): the score
+kernels for the forward, dQ and dK/dV (``csrc/flash_mma.cuh``): the score
 products QK^T and dO V^T are exact products of the bf16 inputs summed in
-f32; the forward rounds P to bf16 before P V; dK/dV split P and dS into
-bf16 hi + lo parts (lo = bf16(x - hi)) and run each of P^T dO and dS^T Q
-as two products, which keeps them to ~2^-17 of the f32 values.  Softmax
-statistics, lse and delta are f32; each output is rounded once to bf16.
-dQ stays a CUDA-core kernel in both types.  The kernels take contiguous
+f32; the forward rounds P to bf16 before P V; the backward kernels split
+P and dS into bf16 hi + lo parts (lo = bf16(x - hi)) and run each of
+dS K, P^T dO and dS^T Q as two products, which keeps them to ~2^-17 of
+the f32 values.  Softmax statistics, lse and delta are f32; each output
+is rounded once to bf16.  The kernels take contiguous
 operands whose data pointers are 16-byte aligned (their tile copies move
 16 bytes a thread) and refuse others.
 

@@ -204,6 +204,63 @@ def test_fused_updates_match_plain(card, rule, n, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam"])
+def test_multi_tensor_update_matches_plain(card, rule):
+    """One call over 40 tensors of mixed sizes, some of them (or their
+    slots) views 4 bytes into their storage, and one param without a
+    gradient: one launch per planned table, SGD and momentum bit-exact
+    against the plain versions, Adam within rtol 1e-5, atol 1e-7; params
+    come back as fresh tensors, the one without a gradient untouched."""
+    gen = torch.Generator(device=card).manual_seed(11)
+
+    def randn(shape, offset=0):
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, generator=gen,
+                           device=card)[offset:].view(shape)
+
+    shapes = [(1,), (3,), (4099,), (1024, 1024)] * 10
+    params, grads, s0, s1 = {}, {}, {}, {}
+    for i, shape in enumerate(shapes):
+        name = f"t{i}"
+        params[name] = randn(shape, 1 if i % 7 == 2 else 0)
+        grads[name] = randn(shape, 1 if i % 9 == 3 else 0)
+        s0[name] = randn(shape, 1 if i % 11 == 4 else 0)
+        s1[name] = randn(shape).abs()
+    del grads["t5"]
+    names = [k for k in params if k in grads]
+    slots = {"sgd": (), "momentum": (s0,), "adam": (s0, s1)}[rule]
+    ref_slots = [{k: s[k].clone() for k in names} for s in slots]
+    tables = fu.plan([params[k].numel() for k in names], [True] * len(names))
+    before = fu.launches[f"fused_{rule}"]
+    if rule == "sgd":
+        out = fu.fused_sgd(params, grads, 0.3)
+        ref = {k: fu.sgd_reference(params[k], grads[k], 0.3) for k in names}
+    elif rule == "momentum":
+        out = fu.fused_momentum(params, grads, s0, 0.1, 0.9)[0]
+        ref = {k: fu.momentum_reference(params[k], grads[k], ref_slots[0][k],
+                                        0.1, 0.9) for k in names}
+    else:
+        out = fu.fused_adam(params, grads, s0, s1, 5, lr=0.01)[0]
+        bc = fu.bias_corrections(5, 0.9, 0.999)
+        ref = {k: fu.adam_reference(params[k], grads[k], ref_slots[0][k],
+                                    ref_slots[1][k], 0.01, 0.9, 0.999, 1e-8,
+                                    *bc) for k in names}
+    torch.cuda.synchronize()
+    assert fu.launches[f"fused_{rule}"] == before + len(tables)
+    assert out["t5"] is params["t5"]
+    pairs = [(out[k], ref[k]) for k in names] + [
+        (s[k], r[k]) for s, r in zip(slots, ref_slots) for k in names]
+    for k in names:
+        assert out[k].shape == params[k].shape
+        assert out[k].data_ptr() != params[k].data_ptr()
+    for got, want in pairs:
+        if rule == "adam":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-7)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_training_step_on_card_matches_cpu(card):
     """A 2-layer f32 model (head_dim 64, remat, chunked loss) trains on
     the card through the kernels: the launch counts are the expected ones,
@@ -239,5 +296,7 @@ def test_training_step_on_card_matches_cpu(card):
                    for p in params.values())
         grads, loss = trainer.compute_gradients(params, batch)
         losses.append(loss)
-    assert fu.launches["fused_adam"] == 2 * len(store)
+    # one launch per planned table a step (one for this store)
+    tables = fu.plan([np.size(x) for x in store.values()], [True] * len(store))
+    assert fu.launches["fused_adam"] == 2 * len(tables)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]

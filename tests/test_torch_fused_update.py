@@ -133,3 +133,128 @@ def test_cpu_updates_count_no_launch():
     PallasOptimizer("adam", device="cpu").apply(
         {"w": np.ones(3, np.float32)}, {"w": np.ones(3, np.float32)})
     assert sum(fu.launches.values()) == 0
+
+
+# The multi-tensor launch's planner (one launch over the whole store on the
+# card; tests/test_torch_cuda.py runs the kernel itself).
+CHUNK = fu.CHUNK
+PLAN_SIZES = [
+    [1, 3, 4099, 1 << 20, 0, CHUNK, CHUNK + 1, 0, 7],
+    [3 * CHUNK + 5] * 300,                    # more tensors than a table
+    [CHUNK * (fu.MAX_CHUNKS + 7) + 5, 17],    # one tensor past a table
+]
+
+
+def _chunks_of(rows, i):
+    mine = rows[rows[:, 0] == i]
+    return mine[np.argsort(mine[:, 1])]
+
+
+@pytest.mark.parametrize("sizes", PLAN_SIZES)
+def test_plan_covers_every_element_once(sizes):
+    """Each tensor's chunks start at 0, abut, never overlap and end at its
+    size; a zero-size tensor has none."""
+    rows = np.concatenate(fu.plan(sizes, [True] * len(sizes)))
+    assert set(rows[:, 0]) == {i for i, n in enumerate(sizes) if n}
+    for i, n in enumerate(sizes):
+        mine = _chunks_of(rows, i)
+        if not n:
+            assert len(mine) == 0
+            continue
+        starts, lengths = mine[:, 1], mine[:, 2]
+        assert starts[0] == 0 and (lengths > 0).all()
+        assert (lengths <= CHUNK).all() and (starts % CHUNK == 0).all()
+        assert (starts[1:] == starts[:-1] + lengths[:-1]).all()
+        assert starts[-1] + lengths[-1] == n
+
+
+@pytest.mark.parametrize("sizes", PLAN_SIZES)
+def test_plan_fits_the_kernel_table(sizes):
+    """Every table fits the kernel's by-value parameter: at most
+    MAX_CHUNKS chunks of at most MAX_TENSORS tensors, and the packed form
+    (csrc/fused_update.cu Table) within CUDA's 32,764 bytes."""
+    tables = fu.plan(sizes, [True] * len(sizes))
+    for t in tables:
+        assert 0 < len(t) <= fu.MAX_CHUNKS
+        assert len(set(t[:, 0])) <= fu.MAX_TENSORS
+    # Table: per tensor 5 operand pointers, a length, a first block and a
+    # float4 flag; one byte a block; then Adam's 8 scalars
+    table_bytes = fu.MAX_TENSORS * (8 * fu.OPERANDS + 8 + 4 + 1) \
+        + fu.MAX_CHUNKS
+    assert table_bytes == 29952 and table_bytes + 8 * 4 <= 32764
+    total = sum(-(-n // CHUNK) for n in sizes)
+    assert len(tables) >= -(-total // fu.MAX_CHUNKS)
+
+
+def test_plan_float4_only_where_aligned():
+    sizes = [4099, 1 << 20, 3, CHUNK * 2]
+    aligned = [True, False, True, False]
+    rows = np.concatenate(fu.plan(sizes, aligned))
+    for i, ok in enumerate(aligned):
+        assert set(rows[rows[:, 0] == i, 3]) == {int(ok)}
+
+
+def test_llama_store_is_one_launch():
+    """The llama_350m store (219 tensors, 336M elements) plans to one
+    launch."""
+    from parameter_server_distributed_tpu_torch.models.transformer import \
+        llama_350m
+
+    sizes = [int(np.prod(s)) for s in llama_350m().param_shapes().values()]
+    assert len(sizes) == 219
+    assert len(fu.plan(sizes, [True] * len(sizes))) == 1
+
+
+@pytest.mark.parametrize("sizes", PLAN_SIZES)
+def test_kernel_table_expands_to_the_plan(sizes):
+    """The kernel's form of each table, read back as the kernel reads it
+    (block b: tensor block[b], chunk b - first), is the planned table."""
+    aligned = [i % 3 != 1 for i in range(len(sizes))]
+    for table in fu.plan(sizes, aligned):
+        tensors, n, first, vec, block = fu.kernel_table(table, sizes)
+        assert len(tensors) <= fu.MAX_TENSORS and block.dtype == np.uint8
+        b = np.arange(len(block))
+        start = (b - first[block].astype(np.int64)) * CHUNK
+        got = np.stack([tensors[block], start,
+                        np.minimum(CHUNK, n[block] - start), vec[block]],
+                       axis=1)
+        np.testing.assert_array_equal(got, table)
+
+
+def test_launch_args_take_float4_only_on_aligned_operands():
+    """The host side of a launch on real tensors: a view 4 bytes into its
+    storage (or one of its slots) takes the scalar path, zero-size
+    tensors are left out, and each launch carries the operands' addresses
+    in the kernel's (p, g, out, s0, s1) order."""
+    def aligned(n):
+        return torch.zeros(n + 4)[4:]
+
+    def odd(n):
+        return torch.zeros(n + 1)[1:]
+
+    rows = [(aligned(4099), aligned(4099), aligned(4099), aligned(4099)),
+            (odd(8), aligned(8), aligned(8), aligned(8)),
+            (aligned(0), aligned(0), aligned(0), aligned(0)),
+            (aligned(CHUNK + 3), aligned(CHUNK + 3), aligned(CHUNK + 3),
+             odd(CHUNK + 3))]
+    ops_in = np.zeros((len(rows), fu.OPERANDS), np.int64)
+    ops_in[:, :4] = [[x.data_ptr() for x in r] for r in rows]
+    sizes = tuple(r[0].numel() for r in rows)
+    (ops, n, first, vec, block), = fu.launch_args(ops_in, sizes)
+    np.testing.assert_array_equal(n, [4099, 8, CHUNK + 3])
+    np.testing.assert_array_equal(vec, [1, 0, 0])
+    np.testing.assert_array_equal(ops, ops_in[[0, 1, 3]])
+    np.testing.assert_array_equal(block, [0, 1, 2, 2])
+    np.testing.assert_array_equal(first, [0, 1, 2])
+
+
+def test_no_gradient_passes_through_untouched():
+    rng = np.random.default_rng(6)
+    p, g = _torch(_store(rng)), _torch(_store(rng))
+    del g["b"]
+    for out in (fu.fused_sgd(p, g, 0.1),
+                fu.fused_momentum(p, g, _torch(_store(rng)), 0.1)[0],
+                fu.fused_adam(p, g, _torch(_store(rng)), _torch(_store(rng)),
+                              1)[0]):
+        assert out["b"] is p["b"]
+        assert all(out[k] is not p[k] for k in g)
