@@ -16,7 +16,13 @@ yardstick, then drives the two paths of the port:
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
   tokens, then one sgd and one momentum apply over the same store; then
   the same 5 steps with dense attention, whose losses stand beside the
-  kernels' (the first must agree within 1e-3).
+  kernels' (the first must agree within 1e-3);
+- the parameter-server round: CoordinatorCore and ParameterServerCore
+  (make_optimizer("pallas_adam")) driving two llama_350m workers through
+  3 synchronous rounds (serve -> gradient step -> push; the second push
+  closes the barrier), the round-1 params held against the plain Adam
+  update, one pallas_sgd and one pallas_momentum apply through a core,
+  and a CheckpointManager save / load / resume that must be bit-exact.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must equal the expected counts.  Each phase prints one JSON
@@ -30,6 +36,7 @@ False), so float32 products are full float32.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -51,6 +58,7 @@ LLAMA = dict(heads=16, kv=4, d=64, layers=24)   # llama_350m attention
 PROMPT_LENS = (129, 200, 300, 511, 513, 700, 1000, 1200)
 NEW_TOKENS = 32
 TRAIN = dict(batch=8, seq=1024, steps=5, lr=1e-3)
+ROUND = dict(workers=2, rounds=3)
 
 
 def fail(msg: str) -> None:
@@ -921,6 +929,282 @@ def train(torch, np, fa, fu) -> dict:
     return launches
 
 
+def ps_round(torch, np, fa, fu) -> dict:
+    """The parameter-server round (BASELINE config 1) in process: a
+    CoordinatorCore registers workers 0 and 1, a ParameterServerCore over
+    make_optimizer("pallas_adam") is initialised with Trainer.init_params
+    (0), and two full-width llama_350m workers (bf16, flash attention,
+    remat "full", loss_chunk 128), each on its own batch (the first of
+    its registry stream, seeded with its id), take three rounds of
+    serve_parameters -> compute_gradients -> receive_gradients, one after
+    the other; the second push closes each barrier.  Then the round-1
+    params against the plain Adam update of the numpy mean, one
+    pallas_sgd and one pallas_momentum apply through a one-worker core,
+    and a checkpoint resume on the 2-layer f32 model.  Returns the
+    round's launch counts (the three rounds and the two one-apply cores)."""
+    import shutil
+    import tempfile
+
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import PallasOptimizer
+    from parameter_server_distributed_tpu_torch.checkpoint.manager import \
+        CheckpointManager
+    from parameter_server_distributed_tpu_torch.core.coordinator_core \
+        import CoordinatorCore
+    from parameter_server_distributed_tpu_torch.core.optimizer import \
+        make_optimizer
+    from parameter_server_distributed_tpu_torch.core.ps_core import \
+        ParameterServerCore
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model_and_batches
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.obs import stats
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
+
+    b, s, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    workers, rounds = ROUND["workers"], ROUND["rounds"]
+    coord = CoordinatorCore("127.0.0.1", 50051)
+    for wid in range(workers):
+        coord.register_worker(wid, "127.0.0.1", 6000 + wid, f"worker{wid}")
+    opt = make_optimizer("pallas_adam", lr)
+    fallback = stats.counter("ps.apply.device_fallback").value
+    if not (isinstance(opt, PallasOptimizer) and opt.device.type == "cuda"
+            and fallback == 0):
+        fail(f"pallas_adam is {type(opt).__name__} (device fallbacks "
+             f"{fallback}), not PallasOptimizer on the card")
+    ps = ParameterServerCore(total_workers=workers, optimizer=opt,
+                             live_workers_fn=coord.width_provider())
+    sides = [get_model_and_batches("llama_350m", b, seed=wid, dtype="bf16")
+             for wid in range(workers)]
+    model = sides[0][0]
+    if model.attention_fn is not flash_attention_auto:
+        fail("PSDT_FLASH_ATTENTION=1 did not select the flash kernel")
+    trainers = [Trainer(m) for m, _ in sides]
+    batches = [next(stream) for _, stream in sides]
+    init = trainers[0].init_params(0)
+    ps.initialize_parameters(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fu.reset_launches()
+    losses, times, pushes, kept = [], [], [], {}
+
+    def one_round(it: int) -> dict:
+        """serve -> gradient step -> push for each worker in turn; the
+        host-clock split of the round.  Keeps round 1's gradients and
+        worker 0's last ones in ``kept``."""
+        t = {"serve_s": [], "step_s": []}
+        for wid in range(workers):
+            t0 = time.perf_counter()
+            _, params, ready = ps.serve_parameters(it)
+            t1 = time.perf_counter()
+            on_card = all(isinstance(v, torch.Tensor) and v.is_cuda
+                          for v in params.values())
+            if not ready or (it > 1 and not on_card):
+                fail(f"round {it}: the served store is not ready on the "
+                     f"card (ready {ready}, on the card {on_card})")
+            grads, loss = trainers[wid].compute_gradients(params,
+                                                          batches[wid])
+            t2 = time.perf_counter()
+            result = ps.receive_gradients(wid, it, grads)
+            torch.cuda.synchronize()    # the closing push's apply
+            t3 = time.perf_counter()
+            t["serve_s"].append(t1 - t0)
+            t["step_s"].append(t2 - t1)
+            t["close_s" if wid == workers - 1 else "push_s"] = t3 - t2
+            losses.append(loss)
+            pushes.append([it, wid, result.success,
+                           result.aggregation_complete,
+                           result.workers_received, result.total_workers])
+            if not result.success or result.aggregation_complete != (
+                    wid == workers - 1):
+                fail(f"round {it} worker {wid}: push {pushes[-1]}")
+            if it == 1:
+                kept.setdefault("first", []).append(grads)
+            if wid == 0:
+                kept["last0"] = grads
+        status = ps.check_sync_status(it)
+        if status[1:] != (True, workers, workers):
+            fail(f"round {it}: check_sync_status {status}")
+        t["round_s"] = (sum(t["serve_s"]) + sum(t["step_s"]) + t["push_s"]
+                        + t["close_s"])
+        return t
+
+    for it in range(1, rounds + 1):
+        times.append(one_round(it))
+        if it == 1:
+            after_first = ps.get_parameters()
+    launches = {**fa.launches, **fu.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # where a round's time goes: a fourth round under the profiler, after
+    # the counts are read (its losses and pushes are not the phase's)
+    n_losses, n_pushes = len(losses), len(pushes)
+    last0 = kept.pop("last0")
+    prof = profile_window(torch, lambda: one_round(rounds + 1), {
+        "flash": "flash_", "fused_adam": "update_kernel", "gemm": "gemm",
+        "nvjet": "nvjet", "dtoh": "Memcpy DtoH", "htod": "Memcpy HtoD"})
+    del losses[n_losses:], pushes[n_pushes:]
+    c = model.config
+    expected = {"flash_fwd": 2 * c.n_layers * workers * rounds,
+                "flash_bwd_dq": c.n_layers * workers * rounds,
+                "flash_bwd_dkv": c.n_layers * workers * rounds,
+                "fused_sgd": 0, "fused_momentum": 0,
+                "fused_adam": update_launches(fu, model.param_shapes())
+                * rounds}
+    steady = times[1:]
+    round_s = float(np.median([t["round_s"] for t in steady]))
+    flops = workers * model_flops_per_step(model, b, s)
+    mean_loss = [float(np.mean(losses[i * workers:(i + 1) * workers]))
+                 for i in range(rounds)]
+
+    # round 1 against the plain Adam update of the numpy mean of the two
+    # workers' round-1 gradients (the core's fold and scale: a copy of
+    # the first, the second added, times f32 1/2), from the init
+    bc = fu.bias_corrections(1, 0.9, 0.999)
+    worst, ok = 0.0, True
+    with torch.inference_mode():
+        for n, p0 in init.items():
+            mean = np.array(kept["first"][0][n], np.float32)
+            mean += kept["first"][1][n]
+            mean *= np.float32(1.0 / workers)
+            p = torch.from_numpy(p0).cuda()
+            g = torch.from_numpy(mean).cuda()
+            ref = fu.adam_reference(p, g, torch.zeros_like(p),
+                                    torch.zeros_like(p), lr, 0.9, 0.999,
+                                    1e-8, *bc)
+            got = after_first[n]
+            worst = max(worst, float((got - ref).abs().max()))
+            ok = ok and bool(torch.isclose(got, ref, rtol=1e-5,
+                                           atol=1e-7).all())
+    del after_first
+    kept.clear()
+    emit({"phase": "ps_round", "model": "llama_350m", "dtype": "bfloat16",
+          "params": model.num_params(), "workers": workers,
+          "rounds": rounds, "batch": b, "seq": s, "optimizer": "pallas_adam",
+          "lr": lr, "stripes": ps.stripes,
+          "aggregation": ps.aggregation_mode,
+          "device_fallbacks": stats.counter(
+              "ps.apply.device_fallback").value,
+          "pushes": pushes, "losses": losses, "mean_loss": mean_loss,
+          "times": times, "round_s_median": round_s,
+          "serve_s_median": float(np.median([sum(t["serve_s"])
+                                             for t in steady])),
+          "step_s_median": [float(np.median([t["step_s"][w]
+                                             for t in steady]))
+                            for w in range(workers)],
+          "push_s_median": float(np.median([t["push_s"] for t in steady])),
+          "close_s_median": float(np.median([t["close_s"]
+                                             for t in steady])),
+          "tokens_per_s": workers * b * s / round_s,
+          "model_flops_per_round": flops,
+          "mfu": flops / (round_s * PEAK_FLOPS["bfloat16"]),
+          "peak_mem_gb": peak,
+          "barrier_close_s": stats.histogram("ps.barrier_close_s").summary(),
+          "round1_vs_plain_adam": {"max_abs_err": worst, "rtol": 1e-5,
+                                   "atol": 1e-7, "ok": ok},
+          "launches": launches, "expected_launches": expected})
+    emit({"phase": "ps_round_profile", **prof})
+    # the round's only device-to-host copies are the workers' packed
+    # gradient downloads: the core never takes served card tensors to
+    # the host
+    if prof["group_events"]["dtoh"] != workers:
+        fail(f"a round made {prof['group_events']['dtoh']} device-to-host "
+             f"copies, not {workers}")
+    if not ok:
+        fail(f"round-1 params off the plain Adam update by {worst}")
+    if launches != expected:
+        fail(f"ps_round launches {launches} != expected {expected}")
+    if not all(math.isfinite(x) for x in losses) or \
+            mean_loss[-1] >= mean_loss[0]:
+        fail(f"ps_round losses not finite and falling: {losses}")
+
+    # one pallas_sgd and one pallas_momentum apply through a one-worker
+    # core, from the init, on worker 0's last gradients (the mean of one
+    # push is the push: times f32 1.0)
+    fu.reset_launches()
+    other = {}
+    for rule in ("sgd", "momentum"):
+        core = ParameterServerCore(total_workers=1,
+                                   optimizer=make_optimizer(f"pallas_{rule}",
+                                                            lr))
+        core.initialize_parameters(init)
+        t0 = time.perf_counter()
+        result = core.receive_gradients(0, 1, last0)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        worst, ok = 0.0, result.aggregation_complete
+        with torch.inference_mode():
+            for n, got in core.get_parameters().items():
+                p = torch.from_numpy(init[n]).cuda()
+                g = torch.from_numpy(last0[n]).cuda()
+                ref = (fu.sgd_reference(p, g, lr) if rule == "sgd" else
+                       fu.momentum_reference(p, g, torch.zeros_like(p), lr,
+                                             0.9))
+                worst = max(worst, float((got - ref).abs().max()))
+                ok = ok and bool(torch.isclose(got, ref, rtol=1e-5,
+                                               atol=1e-7).all())
+        other[rule] = {"push_s": apply_s, "max_abs_err": worst, "ok": ok}
+        if not ok:
+            fail(f"pallas_{rule} through a core off its plain version by "
+                 f"{worst}")
+        del core
+    one = {"fused_sgd": update_launches(fu, model.param_shapes()),
+           "fused_momentum": update_launches(fu, model.param_shapes())}
+    emit({"phase": "ps_round_sgd_momentum", **other,
+          "launches": dict(fu.launches), "expected_launches": one})
+    if {k: fu.launches[k] for k in one} != one:
+        fail(f"one-apply cores launched {fu.launches}, not {one}")
+    launches.update(one)
+    del ps, opt, trainers, last0, init
+    torch.cuda.empty_cache()
+
+    # checkpoint resume on the 2-layer f32 model: save after round 2,
+    # load into a fresh core with a fresh PallasOptimizer, push the same
+    # round-3 gradients to both; the stores must be equal bit for bit
+    cfg = TransformerConfig(vocab=1024, d_model=256, n_heads=4, n_kv_heads=2,
+                            n_layers=2, d_ff=512, max_seq=256,
+                            mlp_act="swiglu", dtype=torch.float32,
+                            remat=True, loss_chunk=128)
+    small = Trainer(Transformer(cfg, attention_fn=flash_attention_auto))
+    toks = [np.random.default_rng(10 + wid).integers(0, 1024, (4, 256),
+                                                      dtype=np.int32)
+            for wid in range(workers)]
+    live = ParameterServerCore(total_workers=workers,
+                               optimizer=PallasOptimizer("adam", lr))
+    live.initialize_parameters(small.init_params(2))
+
+    def push_round(cores, it):
+        for wid in range(workers):
+            grads_, _ = small.compute_gradients(
+                live.serve_parameters(it)[1], toks[wid])
+            for core_ in cores:
+                core_.receive_gradients(wid, it, grads_)
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ps_round-", dir=os.path.join(HERE, "build"))
+    try:
+        for it in (1, 2):
+            push_round([live], it)
+        path = CheckpointManager(live, tmp).save()
+        resumed = ParameterServerCore(total_workers=workers,
+                                      optimizer=PallasOptimizer("adam", lr))
+        CheckpointManager(resumed, tmp).load(path)
+        files = sorted(os.listdir(tmp))
+        push_round([live, resumed], 3)
+        a, r = live.get_parameters(), resumed.get_parameters()
+        equal = sorted(a) == sorted(r) and all(
+            torch.equal(a[n], r[n]) for n in a)
+    finally:
+        shutil.rmtree(tmp)
+    emit({"phase": "ps_round_checkpoint", "model": "2-layer f32",
+          "files": files, "resumed_iteration": resumed.current_iteration,
+          "bit_exact": equal, "tmp_removed": not os.path.exists(tmp)})
+    if not equal or os.path.exists(tmp):
+        fail("the resumed core's store differs from the live one's")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside this script")
@@ -948,6 +1232,9 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     print(smi, flush=True)
+    # whether the wire round's gRPC services could run here (reported only)
+    emit({"phase": "env", "python": sys.version.split()[0],
+          "grpc": importlib.util.find_spec("grpc") is not None})
 
     # ---- build every kernel source, all nvcc processes at once
     t0 = time.perf_counter()
@@ -988,12 +1275,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "served", "elapsed_s": time.perf_counter() - t_start})
     train_launches = train(torch, np, fa, fu)
+    torch.cuda.empty_cache()
+    emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
+    round_launches = ps_round(torch, np, fa, fu)
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
     # B=1), the others at the training shapes; launches from the main
     # paths' runs
-    launches = dict(train_launches)
-    launches["flash_fwd"] = serve_fwd + train_launches["flash_fwd"]
+    by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
+                      "train": train_launches[name],
+                      "ps_round": round_launches[name]}
+               for name in train_launches}
+    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
                                             if k != "flash_fwd"}, **update_t}
     sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:86"),
@@ -1010,13 +1303,12 @@ def main() -> int:
                  "replaces": PALLAS + tpu, "launches": launches[name],
                  "max_abs_err": max_err[name], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if name == "flash_fwd":
-            entry["launches_by_path"] = {
-                "serve": serve_fwd, "train": train_launches["flash_fwd"]}
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                 "launches_by_path": by_path[name]}
         kernels.append(entry)
-    if any(k["launches"] <= 0 for k in kernels):
-        fail(f"a kernel of the main paths never launched: {launches}")
+    if any(k["launches"] <= 0 or k["launches_by_path"]["ps_round"] <= 0
+           for k in kernels):
+        fail(f"a kernel of the main paths never launched: {by_path}")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,135 @@
+"""Stripe partitioning and the shared PS worker pool: the port's copy of
+parameter_server_distributed_tpu/core/stripes.py.
+
+The PS tensor store is partitioned into S fixed **stripes** by tensor
+name (``stripe_of`` — a stable crc32, NOT Python's salted ``hash``, so
+every process, test, and analyzer agrees on the partition).  A stripe is
+the unit of hot-path parallelism on the PS host: gradient folds, the
+barrier-close scale + optimizer apply, and the serve-cache encode each
+fan their per-tensor work out per stripe across :func:`shared_pool`.
+Stripes never split a single tensor's reduction, so striped results are
+bit-for-bit identical to serial — the parallelism only changes WHICH
+thread runs each tensor's (unchanged) f32 ufunc sweep, and numpy/native
+kernels release the GIL for the sweeps, so S stripes really occupy S
+cores.
+
+``PSDT_STRIPES`` sets S (default: usable cores; ``1`` keeps the exact
+serial code path — ps_core bypasses the striped branches entirely).
+The serve-cache encode comes with the wire round.
+
+The pool is ONE process-wide named executor shared by every consumer
+(fold, apply, encode).  That is safe because every submitted task is
+finite CPU work that never blocks on another pool task — the waiters
+(RPC handler threads, the barrier closer) are never pool threads — so
+the pool can be saturated but never deadlocked.  Tasks must follow that
+contract: no nested :func:`run_striped` from inside a task.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Sequence, TypeVar
+
+T = TypeVar("T")
+
+ENV_STRIPES = "PSDT_STRIPES"
+
+
+def usable_cores() -> int:
+    """Cores this process may actually run on (cgroup/affinity aware —
+    ``os.cpu_count`` over-reports inside containers)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):  # non-Linux / restricted
+        return os.cpu_count() or 1
+
+
+def stripe_count(override: int | None = None) -> int:
+    """The configured stripe count: explicit override, else PSDT_STRIPES,
+    else the usable core count.  1 = exact serial behavior."""
+    if override is not None:
+        n = int(override)
+    else:
+        raw = os.environ.get(ENV_STRIPES, "")
+        n = int(raw) if raw else usable_cores()
+    if n < 1:
+        raise ValueError(f"stripe count must be >= 1, got {n}")
+    return n
+
+
+def stripe_of(name: str, stripes: int) -> int:
+    """Stable stripe assignment for a tensor name.  crc32, not hash():
+    PYTHONHASHSEED must not change which stripe owns a tensor between the
+    process that checkpoints optimizer state and the one that restores
+    it, or between the test asserting a partition and the server using
+    it."""
+    if stripes <= 1:
+        return 0
+    return zlib.crc32(name.encode("utf-8")) % stripes
+
+
+def partition_names(names: Iterable[str],
+                    stripes: int) -> list[list[str]]:
+    """Group ``names`` by owning stripe (input order preserved within a
+    stripe).  Only non-empty groups are returned."""
+    groups: dict[int, list[str]] = {}
+    for name in names:
+        groups.setdefault(stripe_of(name, stripes), []).append(name)
+    return [groups[s] for s in sorted(groups)]
+
+
+# One process-wide pool, created on first use.  Single-flight under a
+# lock so concurrent first folds do not race two executors into
+# existence.
+_pool: ThreadPoolExecutor | None = None
+_pool_lock = threading.Lock()
+
+
+def shared_pool() -> ThreadPoolExecutor:
+    global _pool
+    if _pool is None:
+        with _pool_lock:
+            if _pool is None:
+                # sized to the host, not to PSDT_STRIPES: an S larger
+                # than the core count still completes (tasks queue), it
+                # just cannot add parallelism the hardware doesn't have
+                _pool = ThreadPoolExecutor(
+                    max_workers=max(2, usable_cores()),
+                    thread_name_prefix="psdt-stripe")
+    return _pool
+
+
+def run_striped(tasks: Sequence[Callable[[], T]]) -> list[T]:
+    """Run the per-stripe thunks, one result per task in order.
+
+    The FIRST task runs inline on the calling thread (it was going to
+    block waiting anyway — this way the caller's core does a stripe's
+    work instead of idling), the rest on the shared pool.  A single task
+    never touches the pool at all.  Exceptions propagate — but only
+    after every task has finished, so a failed stripe never leaves a
+    sibling's ufunc sweeping a buffer the caller already considers
+    settled (ps_core's put-back/retry paths rely on quiescence)."""
+    if not tasks:
+        return []
+    if len(tasks) == 1:
+        return [tasks[0]()]
+    pool = shared_pool()
+    futures = [pool.submit(task) for task in tasks[1:]]
+    first_exc: BaseException | None = None
+    results: list = [None] * len(tasks)
+    try:
+        results[0] = tasks[0]()
+    except BaseException as exc:  # noqa: BLE001 — re-raised below
+        first_exc = exc
+    for i, fut in enumerate(futures, start=1):
+        try:
+            results[i] = fut.result()
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            if first_exc is None:
+                first_exc = exc
+    if first_exc is not None:
+        raise first_exc
+    return results

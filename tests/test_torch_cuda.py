@@ -300,3 +300,72 @@ def test_training_step_on_card_matches_cpu(card):
     tables = fu.plan([np.size(x) for x in store.values()], [True] * len(store))
     assert fu.launches["fused_adam"] == 2 * len(tables)
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def _ps_store(seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (64, 96), "b": (96,), "emb": (300, 64)}
+    init = {n: rng.standard_normal(s).astype(np.float32)
+            for n, s in shapes.items()}
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()} for _ in range(4)]
+    return init, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_ps_core_on_card_matches_cpu(card, staleness):
+    """The PS core over the fused Adam update on the card, synchronous
+    (2 workers) and async (staleness 2, one worker: the apply's CUDA
+    event gates the serve and the next apply), against the same core on
+    the CPU (the update's plain version), rtol 1e-5, atol 1e-7; the store
+    it serves lies on the card."""
+    from parameter_server_distributed_tpu_torch.core.ps_core import \
+        ParameterServerCore
+
+    init, grads = _ps_store(0)
+    workers = 1 if staleness else 2
+    stores = {}
+    for where in ("cpu", card):
+        ps = ParameterServerCore(
+            total_workers=workers, staleness_bound=staleness,
+            optimizer=PallasOptimizer("adam", 1e-2, device=where))
+        ps.initialize_parameters(init)
+        for it in range(1, 3):
+            for wid in range(workers):
+                result = ps.receive_gradients(wid, it,
+                                              grads[2 * (it - 1) + wid])
+                assert result.success
+            assert result.aggregation_complete
+        torch.cuda.synchronize()
+        served = ps.serve_parameters()[1]
+        assert all(same_device(v.device, torch.device(where))
+                   for v in served.values())
+        stores[str(where)] = served
+    for n in init:
+        torch.testing.assert_close(stores["cuda"][n].cpu(), stores["cpu"][n],
+                                   rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adam", "adamw",
+                                  "adamw_bf16"])
+def test_device_optimizer_on_card_matches_cpu(card, rule):
+    """DeviceOptimizer's torch ops on the card against the CPU's, two
+    applies at rtol 1e-5, atol 1e-7 (adamw_bf16: its first apply; the
+    second depends on the generator's bits, which differ by device)."""
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import DeviceOptimizer
+
+    init, grads = _ps_store(1)
+    out = {}
+    for where in ("cpu", card):
+        opt = DeviceOptimizer(rule, 1e-2, device=where)
+        p = init
+        for g in grads[:1 if rule == "adamw_bf16" else 2]:
+            p = opt.apply(p, g)
+        out[str(where)] = p
+        assert opt.state_dict()["count"] >= 1
+    for n in init:
+        torch.testing.assert_close(out["cuda"][n].cpu(), out["cpu"][n],
+                                   rtol=1e-5, atol=1e-7)

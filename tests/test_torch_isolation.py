@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
 package, and its entry points run on the CUDA card unless the caller asks
-for the CPU."""
+for the CPU (the PS optimizer factory degrades to the host optimizer
+instead, and counts it, as the reference's does)."""
 
 import ast
 import os
@@ -92,17 +93,44 @@ def test_port_imports_and_serves_with_jax_blocked():
         opt = device_optimizer.PallasOptimizer("adam", 1e-3, device="cpu")
         new = opt.apply(params, grads)
         assert loss > 0 and sorted(new) == sorted(params)
+        # a two-worker, two-round PS session: coordinator, core, the
+        # fused Adam apply, a checkpoint of the result
+        import tempfile
+        from parameter_server_distributed_tpu_torch.checkpoint.manager \
+            import CheckpointManager
+        from parameter_server_distributed_tpu_torch.core.coordinator_core \
+            import CoordinatorCore
+        from parameter_server_distributed_tpu_torch.core.optimizer import \
+            make_optimizer
+        from parameter_server_distributed_tpu_torch.core.ps_core import \
+            ParameterServerCore
+        coord = CoordinatorCore("127.0.0.1", 50051)
+        for wid in (0, 1):
+            coord.register_worker(wid, "127.0.0.1", 6000 + wid, "h")
+        ps = ParameterServerCore(
+            total_workers=2, live_workers_fn=coord.width_provider(),
+            optimizer=make_optimizer("pallas_adam", 1e-3, device="cpu"))
+        ps.initialize_parameters(params)
+        batch = next(batches)
+        for it in (1, 2):
+            for wid in (0, 1):
+                served = ps.serve_parameters(it)[1]
+                grads, _ = trainer.compute_gradients(served, batch)
+                result = ps.receive_gradients(wid, it, grads)
+            assert result.aggregation_complete
+        with tempfile.TemporaryDirectory() as d:
+            CheckpointManager(ps, d).save()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served and trained")
+        print("served, trained and ran a PS session")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "served and trained" in proc.stdout
+    assert "served, trained and ran a PS session" in proc.stdout
 
 
 def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
@@ -118,6 +146,12 @@ def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
         DecodeServer
     from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
 
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import DeviceOptimizer
+    from parameter_server_distributed_tpu_torch.core.optimizer import (
+        Adam, make_optimizer)
+    from parameter_server_distributed_tpu_torch.obs import stats
+
     model = get_model("tiny_lm")
     params = model.init_params(0, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -125,6 +159,13 @@ def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
         Trainer(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PallasOptimizer("adam")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceOptimizer.adam()
+    # the PS optimizer factory degrades to the host rule, counted
+    fallback = stats.counter("ps.apply.device_fallback")
+    before = fallback.value
+    assert type(make_optimizer("pallas_adam", 1e-3)) is Adam
+    assert fallback.value == before + 1
     with pytest.raises(RuntimeError, match="no CUDA device"):
         synthetic_tokens(2, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
