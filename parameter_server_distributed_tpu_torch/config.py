@@ -1,57 +1,10 @@
-"""Configuration of the port: command-line helpers shared by its CLI mains
-and the parameter-server and coordinator settings its cores and
-``CheckpointManager`` read (the port's own copy of parse_argv,
-require_flag_value, ``ParameterServerConfig`` and ``CoordinatorConfig``
-from parameter_server_distributed_tpu/config.py).
-
-Only the fields the in-process cores read are here; the gRPC services'
-fields (bind addresses, ports, replication, tiers) come with the wire
-round (ROADMAP.md Queue 1, item 3b).
-"""
+"""Command-line helpers shared by the port's CLI mains (the port's own
+copy of parse_argv / require_flag_value from
+parameter_server_distributed_tpu/config.py)."""
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Sequence
-
-DEFAULT_PS_PORT = 50051
-DEFAULT_TOTAL_WORKERS = 2
-DEFAULT_CHECKPOINT_INTERVAL = 10  # iterations per epoch
-STALE_TIMEOUT_S = 30.0
-AUTOSAVE_CHECK_PERIOD_S = 5.0
-
-
-@dataclasses.dataclass(frozen=True)
-class CoordinatorConfig:
-    ps_address: str = "127.0.0.1"
-    ps_port: int = DEFAULT_PS_PORT
-    stale_timeout_s: float = STALE_TIMEOUT_S
-
-
-@dataclasses.dataclass(frozen=True)
-class ParameterServerConfig:
-    total_workers: int = DEFAULT_TOTAL_WORKERS
-    checkpoint_interval: int = DEFAULT_CHECKPOINT_INTERVAL
-    checkpoint_dir: str = "."
-    autosave_period_s: float = AUTOSAVE_CHECK_PERIOD_S
-    learning_rate: float = 1.0
-    # sgd | momentum | adam | adamw | lion (host numpy), device_<rule>
-    # (sgd, momentum, adam, adamw, adamw_bf16), pallas_<rule> (sgd,
-    # momentum, adam) — core/optimizer.make_optimizer
-    optimizer: str = "sgd"
-    momentum: float = 0.9
-    weight_decay: float = 1e-4   # adamw variants and lion, matrices only
-    staleness_bound: int = 0     # 0 = synchronous barrier
-    # "streaming" | "buffered"; empty = PSDT_AGGREGATION or streaming
-    aggregation: str = ""
-    elastic: bool = False        # barrier width tracks live registrations
-    live_workers_ttl_s: float = 1.0
-    gc_iterations: int = 64
-    checkpoint_keep: int = 0     # keep the newest N checkpoints (0 = all)
-
-    @property
-    def synchronous(self) -> bool:
-        return self.staleness_bound == 0
 
 
 def parse_argv(argv: Sequence[str]) -> tuple[list[str], dict[str, str]]:

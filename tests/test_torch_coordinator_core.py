@@ -6,7 +6,6 @@ import numpy as np
 import pytest
 
 from parameter_server_distributed_tpu.core import coordinator_core as ref
-from parameter_server_distributed_tpu_torch import config
 from parameter_server_distributed_tpu_torch.core import coordinator_core
 from parameter_server_distributed_tpu_torch.core.ps_core import \
     ParameterServerCore
@@ -88,19 +87,3 @@ def test_width_provider_narrows_the_barrier_at_once():
     assert (r.aggregation_complete, r.total_workers) == (True, 1)
     assert ps.check_sync_status(1)[1]   # the poll closes iteration 1 too
     np.testing.assert_array_equal(ps.get_parameters()["w"], [-2.0, -2.0])
-
-
-@pytest.mark.parametrize("name", ["CoordinatorConfig",
-                                  "ParameterServerConfig"])
-def test_config_defaults_match_reference(name):
-    """Every field the port carries has the reference's default."""
-    import dataclasses
-
-    from parameter_server_distributed_tpu import config as ref_config
-
-    port = getattr(config, name)()
-    reference = getattr(ref_config, name)()
-    for field in dataclasses.fields(port):
-        assert getattr(port, field.name) == getattr(reference, field.name), \
-            field.name
-    assert config.ParameterServerConfig(staleness_bound=2).synchronous is False

@@ -20,9 +20,8 @@ lr * g / (|g| + eps), so a rounding difference that is a share of g moves
 the update by that share of lr.  With these seeds 13 to 14 of
 the 656,000 entries (in embed/tok, layer0's wo, wq, w1 and w2, layer1's
 w2) leave the tolerance each round, by at most 1.3e-5 (0.013 lr).  So with
-Adam each tensor holds it in all but 0.1% of its entries and every entry
-is within 0.1 lr, the rule test_torch_trainer.py's default-eps loop
-uses."""
+Adam every entry of a store but at most 15 holds the tolerance, and those
+few are within 0.1 lr."""
 
 import jax
 import numpy as np
@@ -51,6 +50,7 @@ WORKERS, ROUNDS, BATCH = 2, 3, 2
 RULES = {"momentum": dict(learning_rate=1e-2, momentum=0.9),
          "adam": dict(learning_rate=1e-3, eps=1e-6)}
 TOL = dict(rtol=1e-4, atol=1e-6)
+ADAM_NEAR_EPS_ENTRIES = 15   # entries of a store allowed outside TOL
 
 
 def run_round(coord_cls, core_cls, optimizer, trainers, batches, init):
@@ -88,14 +88,15 @@ def flash_default(monkeypatch):
 
 
 def assert_params(got, ref, rule, lr):
+    off = 0
     for k in ref:
         if rule == "momentum":
             np.testing.assert_allclose(got[k], ref[k], **TOL, err_msg=k)
             continue
-        off = ~np.isclose(got[k], ref[k], **TOL)
-        assert off.sum() <= 1e-3 * off.size, k
+        off += int((~np.isclose(got[k], ref[k], **TOL)).sum())
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=0.1 * lr,
                                    err_msg=k)
+    assert off <= ADAM_NEAR_EPS_ENTRIES, off
 
 
 @pytest.mark.parametrize("rule", list(RULES))

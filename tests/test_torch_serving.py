@@ -173,3 +173,34 @@ def test_serve_main_jsonl_on_cpu(monkeypatch, capsys):
 def test_serve_main_rejects_flags(flag, needle):
     with pytest.raises(SystemExit, match=needle):
         serve_main.main(["--model=small_lm", "--device=cpu", flag])
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["small_lm"], ["--slots=2", "x", "--device=cpu"],
+    ["--prompt=a=b", "--verbose"], ["--k=", "--k=2", "pos"]])
+def test_parse_argv_matches_reference(argv):
+    """serve_main's flag parser (the port's copy in config.py) splits
+    every argv as the JAX package's does: ``--k=v``, bare ``--k`` as "1",
+    the first ``=`` splits, the last repeat wins."""
+    from parameter_server_distributed_tpu import config as ref_config
+    from parameter_server_distributed_tpu_torch import config
+
+    assert config.parse_argv(argv) == ref_config.parse_argv(argv)
+
+
+@pytest.mark.parametrize("argv,hint", [(["--max-len"], ""),
+                                       (["--slots", "x"], "slot count")])
+def test_require_flag_value_matches_reference(argv, hint):
+    """A bare value-flag is refused with the reference's message; the
+    same flag with a value passes."""
+    from parameter_server_distributed_tpu import config as ref_config
+    from parameter_server_distributed_tpu_torch import config
+
+    names = ("--max-len", "--slots")
+    with pytest.raises(SystemExit) as ref:
+        ref_config.require_flag_value(argv, *names, hint=hint)
+    with pytest.raises(SystemExit) as got:
+        config.require_flag_value(argv, *names, hint=hint)
+    assert str(got.value) == str(ref.value)
+    config.require_flag_value([a + "=1" if a.startswith("--") else a
+                               for a in argv], *names, hint=hint)
