@@ -22,7 +22,13 @@ yardstick, then drives the two paths of the port:
   3 synchronous rounds (serve -> gradient step -> push; the second push
   closes the barrier), the round-1 params held against the plain Adam
   update, one pallas_sgd and one pallas_momentum apply through a core,
-  and a CheckpointManager save / load / resume that must be bit-exact.
+  and a CheckpointManager save / load / resume that must be bit-exact;
+- the same round over the wire: cli.ps_main, cli.coordinator_main and
+  two cli.worker_main processes (llama_350m) on localhost, a bootstrap
+  iteration and 3 gradient rounds over the fused PushPullStream data
+  plane, the PS's epoch-1 checkpoint held against the in-process round-1
+  store, every epoch's checkpoint holding its own iteration and Adam
+  step, and the processes' launch counts from their exit reports.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after, and must equal the expected counts.  Each phase prints one JSON
@@ -41,6 +47,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -59,6 +66,7 @@ PROMPT_LENS = (129, 200, 300, 511, 513, 700, 1000, 1200)
 NEW_TOKENS = 32
 TRAIN = dict(batch=8, seq=1024, steps=5, lr=1e-3)
 ROUND = dict(workers=2, rounds=3)
+WIRE_LIMIT_S = 420.0   # the wire round's wall-clock limit, children included
 
 
 def fail(msg: str) -> None:
@@ -941,7 +949,9 @@ def ps_round(torch, np, fa, fu) -> dict:
     params against the plain Adam update of the numpy mean, one
     pallas_sgd and one pallas_momentum apply through a one-worker core,
     and a checkpoint resume on the 2-layer f32 model.  Returns the
-    round's launch counts (the three rounds and the two one-apply cores)."""
+    round's launch counts (the three rounds and the two one-apply cores),
+    the store after round 1 as host numpy, and the round's headline
+    numbers."""
     import shutil
     import tempfile
 
@@ -955,6 +965,7 @@ def ps_round(torch, np, fa, fu) -> dict:
         make_optimizer
     from parameter_server_distributed_tpu_torch.core.ps_core import \
         ParameterServerCore
+    from parameter_server_distributed_tpu_torch.core.tensor import to_host
     from parameter_server_distributed_tpu_torch.models.registry import \
         get_model_and_batches
     from parameter_server_distributed_tpu_torch.models.transformer import (
@@ -1077,8 +1088,15 @@ def ps_round(torch, np, fa, fu) -> dict:
             worst = max(worst, float((got - ref).abs().max()))
             ok = ok and bool(torch.isclose(got, ref, rtol=1e-5,
                                            atol=1e-7).all())
+    # the wire round's round-1 checkpoint is held against this store
+    round1 = to_host(after_first)
     del after_first
     kept.clear()
+    headline = {"round_s_median": round_s,
+                "tokens_per_s": workers * b * s / round_s,
+                "mfu": flops / (round_s * PEAK_FLOPS["bfloat16"]),
+                "peak_mem_gb": peak, "mean_loss": mean_loss,
+                "round1_losses": losses[:workers]}
     emit({"phase": "ps_round", "model": "llama_350m", "dtype": "bfloat16",
           "params": model.num_params(), "workers": workers,
           "rounds": rounds, "batch": b, "seq": s, "optimizer": "pallas_adam",
@@ -1202,6 +1220,256 @@ def ps_round(torch, np, fa, fu) -> dict:
           "bit_exact": equal, "tmp_removed": not os.path.exists(tmp)})
     if not equal or os.path.exists(tmp):
         fail("the resumed core's store differs from the live one's")
+    return launches, round1, headline
+
+
+def _wait_line(path: str, pattern: str, proc, deadline: float) -> str:
+    """The first match of ``pattern`` in a child's log, waiting until
+    ``deadline``; fails if the child exits first or time runs out."""
+    while time.monotonic() < deadline:
+        with open(path) as f:
+            found = re.search(pattern, f.read())
+        if found:
+            return found.group(1)
+        if proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    with open(path) as f:
+        tail = f.read()[-3000:]
+    fail(f"{' '.join(proc.args[2:4])} never printed {pattern!r} "
+         f"(exit {proc.poll()}): {tail}")
+
+
+def ps_wire_round(np, round1, in_process: dict | None) -> dict:
+    """The parameter-server round over the wire (BASELINE config 1 as its
+    users run it): cli.ps_main (2 workers, pallas_adam at lr 1e-3, a
+    checkpoint every iteration into build/), cli.coordinator_main
+    and two cli.worker_main processes (full-width llama_350m, bf16, batch
+    8, worker i on get_model_and_batches("llama_350m", 8, seed=i) as in
+    ps_round), all on the card on free localhost ports.  Iteration 0 is
+    the bootstrap (each worker pushes init_params(0); the PS adopts their
+    mean, the init), then three gradient rounds, each one fused
+    PushPullStream round per worker with bucketed gradient downloads.
+
+    The epoch-1 checkpoint (the store after the first gradient round) is
+    held against ``round1`` (ps_round's, at rtol 1e-5, atol 1e-7) and the
+    workers' round-1 losses against ps_round's (rtol 1e-6), unless
+    ``round1`` and ``in_process`` are None; every epoch's file must
+    hold its own iteration and, in its optimizer sidecar, that
+    iteration's Adam step (the PS takes each at the apply that advanced
+    the epoch, whatever its writer lags).  Rounds 2-3 take each
+    stream's next batches (ps_round repeats the first), so their losses
+    are only held finite.  Each process writes an exit report (launch
+    counts, peak card memory, its obs histograms) and each worker its
+    per-iteration phase times (PSDT_METRICS_FILE).  Fails if a child
+    exits non-zero, a check misses or the phase outlives its limit;
+    every child is killed on the way out.  Returns the path's launch
+    counts, summed over the processes."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ps_wire_round-",
+                           dir=os.path.join(HERE, "build"))
+    env = {**os.environ, "PYTHONPATH": HERE, "PSDT_FLASH_ATTENTION": "1",
+           "PSDT_METRICS_FILE": os.path.join(tmp, "metrics-%d.jsonl")}
+    procs = []
+
+    def spawn(name: str, *args) -> tuple:
+        log = os.path.join(tmp, f"{name}-{len(procs)}.log")
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"{PACKAGE}.cli.{name}", *args],
+                stdout=out, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+        procs.append(proc)
+        return proc, log
+
+    try:
+        return _wire_round_in(tmp, spawn, procs, np, round1, in_process)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _wire_round_in(tmp: str, spawn, procs: list, np, round1,
+                   in_process) -> dict:
+    """ps_wire_round's body, its children and files under ``tmp``."""
+    import signal
+
+    from parameter_server_distributed_tpu_torch.checkpoint.manager import \
+        CheckpointManager
+    from parameter_server_distributed_tpu_torch.core.ps_core import \
+        ParameterServerCore
+    from parameter_server_distributed_tpu_torch.models.transformer import \
+        llama_350m
+    from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+
+    b, s, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
+    workers, rounds = ROUND["workers"], ROUND["rounds"]
+    ckpt_dir = os.path.join(tmp, "ck")
+    deadline = time.monotonic() + WIRE_LIMIT_S
+    t0 = time.perf_counter()
+    try:
+        ps, ps_log = spawn("ps_main", "127.0.0.1:0", str(workers), "1",
+                           "--optimizer=pallas_adam", f"--lr={lr}",
+                           f"--ckpt-dir={ckpt_dir}",
+                           f"--report={tmp}/ps.json")
+        ps_port = _wait_line(ps_log, r"Parameter server listening on "
+                             r"[\d.]+:(\d+)", ps, deadline)
+        coord, coord_log = spawn("coordinator_main", "127.0.0.1:0",
+                                 f"127.0.0.1:{ps_port}")
+        coord_port = _wait_line(coord_log, r"Coordinator server listening "
+                                r"on [\d.]+:(\d+)", coord, deadline)
+        children = [spawn("worker_main", f"127.0.0.1:{coord_port}",
+                          str(wid), str(rounds + 1), "--model=llama_350m",
+                          f"--batch={b}", "--dtype=bf16",
+                          f"--report={tmp}/worker-{wid}.json")
+                    for wid in range(workers)]
+        for proc, log in children:
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"a worker outlived the phase's {WIRE_LIMIT_S} s")
+            if rc != 0:
+                with open(log) as f:
+                    fail(f"worker exited {rc}: {f.read()[-3000:]}")
+        wall = time.perf_counter() - t0
+        for proc, log in ((ps, ps_log), (coord, coord_log)):
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=120.0)
+            except subprocess.TimeoutExpired:
+                rc = "hung at SIGTERM"
+            if rc != 0:
+                with open(log) as f:
+                    fail(f"{proc.args[2]} exited {rc}: {f.read()[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60.0)
+
+    def load(name: str) -> dict:
+        with open(os.path.join(tmp, name)) as f:
+            return json.load(f)
+
+    reports = {"ps": load("ps.json"),
+               **{f"worker {w}": load(f"worker-{w}.json")
+                  for w in range(workers)}}
+    records = {}
+    for wid in range(workers):
+        with open(os.path.join(tmp, f"metrics-{wid}.jsonl")) as f:
+            records[wid] = [json.loads(line) for line in f]
+
+    # the store after the first gradient round, from its checkpoint
+    core = ParameterServerCore(total_workers=workers)
+    ck_files = sorted(os.listdir(ckpt_dir))
+    epoch, iteration = CheckpointManager(core, ckpt_dir).load(
+        os.path.join(ckpt_dir, "checkpoint_epoch_1.ckpt"))
+    got = core.get_parameters()
+    worst, ok = 0.0, (epoch, iteration) == (1, 1)
+    if round1 is not None:
+        ok = ok and sorted(got) == sorted(round1)
+        for n, ref in round1.items():
+            worst = max(worst, float(np.max(np.abs(got[n] - ref))))
+            ok = ok and bool(np.allclose(got[n], ref, rtol=1e-5, atol=1e-7))
+    del core, got
+    # (epoch, iteration) from each file's header (checkpoint/codec.py:
+    # two little-endian int32 first) and the Adam step of its sidecar
+    held = []
+    for e in range(rounds + 1):
+        path = os.path.join(ckpt_dir, f"checkpoint_epoch_{e}.ckpt")
+        with open(path, "rb") as f:
+            header = struct.unpack("<ii", f.read(8))
+        step = 0
+        if os.path.exists(path + ".opt.npz"):
+            with np.load(path + ".opt.npz") as npz:
+                step = int(npz["__scalar__/step"][0])
+        held.append([*header, step])
+    epochs_ok = held == [[e, e, e] for e in range(rounds + 1)]
+
+    # launches, summed over the processes, against the path's
+    model = llama_350m()
+    layers = model.config.n_layers
+    launches = {}
+    for report in reports.values():
+        for name, n in report["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    expected = {"flash_fwd": 2 * layers * workers * rounds,
+                "flash_bwd_dq": layers * workers * rounds,
+                "flash_bwd_dkv": layers * workers * rounds,
+                "fused_sgd": 0, "fused_momentum": 0,
+                "fused_adam": update_launches(fu, model.param_shapes())
+                * rounds}
+    by_process = {role: {k: v for k, v in r["launches"].items() if v}
+                  for role, r in reports.items()}
+
+    def med(key: str, iters) -> float | None:
+        vals = [r[key] for wid in records for r in records[wid]
+                if r["step"] in iters and key in r]
+        return float(np.median(vals)) if vals else None
+
+    steady = range(2, rounds + 1)
+    round_s = float(np.median([max(r["step_time_s"] for wid in records
+                                   for r in records[wid] if r["step"] == it)
+                               for it in steady]))
+    flops = workers * model_flops_per_step(model, b, s)
+    losses = [[r["loss"] for r in records[wid] if r["step"] >= 1]
+              for wid in range(workers)]
+    mean_loss = [float(np.mean([losses[w][i] for w in range(workers)]))
+                 for i in range(rounds)]
+    ps_hist = reports["ps"]["histograms"]
+    out = {"phase": "ps_wire_round", "model": "llama_350m",
+           "dtype": "bfloat16", "processes": ["ps_main", "coordinator_main"]
+           + [f"worker_main {w}" for w in range(workers)],
+           "workers": workers, "rounds": rounds, "batch": b, "seq": s,
+           "optimizer": "pallas_adam", "lr": lr, "wire": "f32",
+           "wall_s": wall, "round_s_median": round_s,
+           "tokens_per_s": workers * b * s / round_s,
+           "mfu": flops / (round_s * PEAK_FLOPS["bfloat16"]),
+           "iterations": {w: [{k: v for k, v in r.items() if k != "t"}
+                              for r in records[w]] for w in records},
+           "phase_medians_s": {
+               "pull_s (iteration 1)": med("pull_s", (1,)),
+               "compute_s": med("compute_s", steady),
+               "fused_push_barrier_pull_s": med("fused_s", steady),
+               "dtoh_device_ms": med("dtoh_ms", steady),
+               "dtoh_wait_s": med("dtoh_wait_s", steady)},
+           "ps_barrier_close_s": ps_hist.get("ps.barrier_close_s"),
+           "ps_barrier_wait_s": ps_hist.get("ps.barrier_wait_s"),
+           "ps_serve_s": ps_hist.get("ps.serve_s"),
+           "ps_apply_s": ps_hist.get("ps.apply_s"),
+           "peak_mem_gb": {role: r["peak_mem_bytes"] / 1e9
+                           for role, r in reports.items()},
+           "losses": losses, "mean_loss": mean_loss,
+           "checkpoints": ck_files,
+           "checkpoint_epoch_iteration_step": held,
+           "round1_vs_ps_round": {"max_abs_err": worst, "rtol": 1e-5,
+                                  "atol": 1e-7, "checked": round1 is not None,
+                                  "ok": ok},
+           "in_process": in_process,
+           "launches": launches, "expected_launches": expected,
+           "launches_by_process": by_process}
+    emit(out)
+    if not ok:
+        fail(f"the wire round's round-1 store is off ps_round's by {worst} "
+             f"(epoch {epoch}, iteration {iteration})")
+    if not epochs_ok:
+        fail(f"a checkpoint does not hold its epoch's iteration and Adam "
+             f"step: {held}")
+    if launches != expected:
+        fail(f"ps_wire_round launches {launches} != expected {expected}")
+    if any(v for k, v in reports["ps"]["launches"].items()
+           if k.startswith("flash")) or any(
+            reports[f"worker {w}"]["launches"][k] for w in range(workers)
+            for k in ("fused_sgd", "fused_momentum", "fused_adam")):
+        fail(f"a kernel ran in the wrong process: {by_process}")
+    if any(len(h) != rounds for h in losses) or not all(
+            math.isfinite(x) for h in losses for x in h):
+        fail(f"ps_wire_round losses not finite: {losses}")
+    if in_process is not None and not np.allclose(
+            [h[0] for h in losses], in_process["round1_losses"], rtol=1e-6):
+        fail(f"round-1 losses {[h[0] for h in losses]} are not ps_round's "
+             f"{in_process['round1_losses']}")
     return launches
 
 
@@ -1277,14 +1545,19 @@ def main() -> int:
     train_launches = train(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
-    round_launches = ps_round(torch, np, fa, fu)
+    round_launches, round1, in_process = ps_round(torch, np, fa, fu)
+    torch.cuda.empty_cache()
+    emit({"phase": "ps_rounded", "elapsed_s": time.perf_counter() - t_start})
+    wire_launches = ps_wire_round(np, round1, in_process)
+    del round1
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
     # B=1), the others at the training shapes; launches from the main
     # paths' runs
     by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
                       "train": train_launches[name],
-                      "ps_round": round_launches[name]}
+                      "ps_round": round_launches[name],
+                      "ps_wire_round": wire_launches[name]}
                for name in train_launches}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.optimizer import HostOptimizer
-from ..core.tensor import to_host
+from ..core.tensor import state_to_host
 from ..device import resolve_device
 from ..ops import fused_update as fu
 
@@ -100,7 +100,10 @@ class PallasOptimizer(HostOptimizer):
     def state_dict(self) -> dict:
         """Slots and step as numpy, in the JAX package's layout, so a
         checkpoint moves between the two optimizers."""
-        out = to_host(self._slots)
+        return state_to_host(self.state_snapshot())
+
+    def state_snapshot(self) -> dict:
+        out: dict = {k: t.clone() for k, t in self._slots.items()}
         if self.step:
             out["step"] = np.asarray([self.step], np.int64)
         return out
@@ -245,11 +248,14 @@ class DeviceOptimizer(HostOptimizer):
         as ``rng``; {} before the first apply.  Not the reference's
         layout: its state is a pickled optax tree, which torch cannot
         rebuild."""
+        return state_to_host(self.state_snapshot())
+
+    def state_snapshot(self) -> dict:
         if not self.count:
             return {}
         out: dict = {"count": self.count}
         for kind, slots in self._slots.items():
-            out[kind] = to_host(slots)
+            out[kind] = {n: t.clone() for n, t in slots.items()}
         if self._generator is not None:
             out["rng"] = self._generator.get_state().numpy().copy()
         return out

@@ -10,7 +10,13 @@ Reproduces the reference's checkpoint daemon semantics
 checkpoint_interval``; when the epoch advances past the last saved epoch,
 write ``checkpoint_epoch_<N>.ckpt`` (same filename convention).  Adds what
 the reference lacks: atomic writes (codec.save), retention of the newest K
-files, optimizer-state sidecars, and a clean stop.
+files, optimizer-state sidecars, and a clean stop.  The port's PS service
+does not run the daemon: it hands :meth:`CheckpointManager.write` the
+state of the apply that advanced the epoch (server/ps_service.py).
+
+Every save takes the core's params and optimizer state in one hold of
+its locks (``ParameterServerCore.checkpoint_state``) and downloads and
+writes after them, so the two files hold the same iteration.
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import Callable
 
 import numpy as np
 
-from ..core.ps_core import ParameterServerCore
+from ..core.ps_core import CheckpointState, ParameterServerCore
+from ..core.tensor import state_to_host, to_host
 from . import codec
 
 _CKPT_RE = re.compile(r"checkpoint_epoch_(\d+)\.ckpt$")
@@ -52,11 +59,12 @@ class CheckpointManager:
         self._last_saved_epoch = -1
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        # RLock: save() locks itself AND is called by maybe_autosave() under
-        # the same lock — an on-demand save racing the autosave daemon
-        # must not interleave writes on the same .tmp file.  Held across
-        # core.snapshot()/restore(), so it ranks BEFORE every core lock.
-        self._lock = threading.RLock()
+        # held around the file writes and the saved-epoch bookkeeping
+        # only, never while a core lock is taken: an on-demand save
+        # racing the autosave daemon must not interleave writes on the
+        # same .tmp file, and the PS's saver thread writes while the
+        # thread that queued its state holds the core's state lock
+        self._lock = threading.Lock()
 
     # ----------------------------------------------------------- daemon
     def start(self) -> None:
@@ -77,35 +85,40 @@ class CheckpointManager:
         """Epoch-advance check (reference: parameter_server_service.cpp:153-168).
         Returns the path written, or None."""
         epoch = self._core.current_iteration // self._interval
-        with self._lock:
-            if epoch <= self._last_saved_epoch:
-                return None
-            if not self._core.get_parameters():
-                # nothing to save yet: don't burn the epoch slot on an empty
-                # checkpoint (restoring one would wipe live parameters)
-                return None
-            return self.save(epoch=epoch)
+        if epoch <= self._last_saved_epoch:
+            return None
+        if not self._core.has_parameters:
+            # nothing to save yet: don't burn the epoch slot on an empty
+            # checkpoint (restoring one would wipe live parameters)
+            return None
+        return self.save(epoch=epoch)
 
     # ------------------------------------------------------------ save/load
     def save(self, epoch: int | None = None, path: str | None = None) -> str:
         """On-demand save (reference RPC SaveCheckpoint —
         src/parameter_server_service.cpp:97-115; path defaults to the
         epoch-filename convention)."""
+        return self.write(self._core.checkpoint_state(), epoch, path)
+
+    def write(self, state: CheckpointState, epoch: int | None = None,
+              path: str | None = None) -> str:
+        """Download and write a state the core handed out
+        (``checkpoint_state``); ``epoch`` defaults to the state's."""
+        params = to_host(state.params)
+        opt_state = state_to_host(state.optimizer)
+        epoch = state.epoch if epoch is None else int(epoch)
+        if path is None:
+            path = os.path.join(self._dir, checkpoint_filename(epoch))
         with self._lock:
-            snap_epoch, iteration, params = self._core.snapshot()
-            epoch = snap_epoch if epoch is None else int(epoch)
-            if path is None:
-                path = os.path.join(self._dir, checkpoint_filename(epoch))
-            codec.save(path, epoch, iteration, params)
-            opt_state = self._core.optimizer_state()
+            codec.save(path, epoch, state.iteration, params)
             if opt_state:
                 _save_optimizer_sidecar(path, opt_state)
             # store-version meta sidecar: the version counter at save
             # time, so a LATER process restoring this file resumes
             # numbering past it and a version id the saving process
             # already served can never name different values.  Read
-            # after snapshot — a concurrent bump makes the recorded
-            # version only larger, which is the safe direction.
+            # after the state was taken — a later apply makes the
+            # recorded version only larger, which is the safe direction.
             _save_meta_sidecar(path, {
                 "params_version": int(self._core.params_version)})
             self._core.epoch = epoch
@@ -124,14 +137,14 @@ class CheckpointManager:
             raise ValueError(f"refusing to restore empty checkpoint {path!r}")
         opt_state = _load_optimizer_sidecar(path)
         meta = _load_meta_sidecar(path)
+        self._core.restore(
+            epoch, iteration, params, optimizer_state=opt_state,
+            # serve_version monotonicity across processes: restore
+            # resumes version numbering past the save-time counter
+            # (core.restore also bumps past everything THIS process
+            # served)
+            params_version=int(meta.get("params_version", 0)))
         with self._lock:
-            self._core.restore(
-                epoch, iteration, params, optimizer_state=opt_state,
-                # serve_version monotonicity across processes: restore
-                # resumes version numbering past the save-time counter
-                # (core.restore also bumps past everything THIS process
-                # served)
-                params_version=int(meta.get("params_version", 0)))
             self._last_saved_epoch = max(self._last_saved_epoch, epoch)
         return epoch, iteration
 

@@ -67,6 +67,14 @@ class HostOptimizer:
     def state_dict(self) -> dict:
         return {}
 
+    def state_snapshot(self) -> dict:
+        """The state in :meth:`state_dict`'s layout, copied so that no
+        later apply reaches it, and cheap enough to take under the PS
+        core's locks: a device optimizer copies its slots on its device
+        and leaves the download to ``core.tensor.state_to_host``.  A host
+        optimizer's ``state_dict`` is such a copy already."""
+        return self.state_dict()
+
     def load_state_dict(self, state: dict) -> None:
         pass
 

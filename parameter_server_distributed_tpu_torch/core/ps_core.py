@@ -52,7 +52,7 @@ import os
 import threading
 import time
 from collections import OrderedDict
-from typing import Callable, Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -129,6 +129,17 @@ class IterationState:
         self.sealed = False
         self.workers_at_aggregation = 0
         self.buffer_bytes = 0
+
+
+class CheckpointState(NamedTuple):
+    """What :meth:`ParameterServerCore.checkpoint_state` hands out: the
+    published store and the optimizer's ``state_snapshot`` (device
+    tensors stay on their device; ``core.tensor.to_host`` and
+    ``state_to_host`` download them)."""
+    epoch: int
+    iteration: int
+    params: TensorStore
+    optimizer: dict
 
 
 class PushResult:
@@ -286,6 +297,9 @@ class ParameterServerCore:
         # _params_event, not yet reached); None when _params is ready
         self._serving: TensorStore | None = None
         self._params_event = None
+        # called with the iteration by the thread that published a store
+        # (see set_apply_hook)
+        self._apply_hook: Callable[[int], None] | None = None
 
     # ------------------------------------------------------------------ props
     @property
@@ -359,6 +373,15 @@ class ParameterServerCore:
 
     def set_total_workers(self, n: int) -> None:
         self._static_total_workers = int(n)
+
+    def set_apply_hook(self, fn: Callable[[int], None] | None) -> None:
+        """Install ``fn(iteration)``, called after each apply that
+        publishes a store (a synchronous barrier close, an async apply)
+        by the applying thread with the core's state lock held, so no
+        other apply runs until it returns.  It may call
+        :meth:`checkpoint_state_locked` (the PS service's checkpoints do)
+        and must not take the state lock.  None removes it."""
+        self._apply_hook = fn
 
     # ----------------------------------------------------------------- params
     def initialize_parameters(self, params: Mapping[str, np.ndarray]) -> None:
@@ -660,6 +683,8 @@ class ParameterServerCore:
                                          iteration)
         self._obs_barrier_close.observe(time.perf_counter() - t0)
         self._barrier_cv.notify_all()
+        if self._apply_hook is not None:
+            self._apply_hook(iteration)
 
     def _close_streaming_locked(self, state: IterationState) -> bool:
         """Take the accumulator, scale it to means and apply outside
@@ -706,6 +731,8 @@ class ParameterServerCore:
                 self._bootstrap_iteration = iteration
                 self._current_iteration = max(self._current_iteration,
                                               iteration)
+                if self._apply_hook is not None:
+                    self._apply_hook(self._current_iteration)
                 return PushResult(True, "bootstrap applied",
                                   self._current_iteration, True, 1,
                                   self.barrier_width())
@@ -727,6 +754,8 @@ class ParameterServerCore:
             self._apply_update(tree_like(gradients))
             self._applied_updates += 1
             self._current_iteration = max(self._current_iteration, iteration)
+            if self._apply_hook is not None:
+                self._apply_hook(self._current_iteration)
             return PushResult(True, "update applied", self._current_iteration,
                               True, 1, self.barrier_width())
 
@@ -906,6 +935,25 @@ class ParameterServerCore:
                     epoch, iteration = self._epoch, self._current_iteration
                     params = dict(self._params)
         return epoch, iteration, to_host(params)
+
+    def checkpoint_state(self) -> CheckpointState:
+        """(epoch, iteration, params, optimizer state) of one moment, for
+        a checkpoint; see :meth:`checkpoint_state_locked`."""
+        with self._state_lock:
+            return self.checkpoint_state_locked()
+
+    def checkpoint_state_locked(self) -> CheckpointState:
+        """:meth:`checkpoint_state` for a caller that holds the state lock
+        (the apply hook).  One hold of the apply and params locks takes
+        the published store (applies never write into a store they
+        returned) and the optimizer's ``state_snapshot`` (slots copied:
+        applies update them in place), so no apply falls between the two.
+        Nothing is downloaded under the locks; the caller does that."""
+        with self._apply_lock:
+            with self._params_lock:
+                return CheckpointState(self._epoch, self._current_iteration,
+                                       dict(self._params),
+                                       self._optimizer.state_snapshot())
 
     def optimizer_state(self) -> dict:
         """The optimizer's slot state as numpy, for checkpointing beside

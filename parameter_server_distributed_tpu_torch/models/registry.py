@@ -39,17 +39,24 @@ def resolve_dtype(name: str) -> torch.dtype:
     return DTYPE_NAMES[name]
 
 
-def get_model(name: str, dtype: str = "") -> Transformer:
+def get_model(name: str, dtype: str = "", remat: bool | None = None,
+              scan: bool | None = None) -> Transformer:
     """Build a registry LM at its factory's defaults; ``dtype``
-    ("f32"/"bf16") overrides the factory's where given."""
+    ("f32"/"bf16"), ``remat`` and ``scan`` (the stacked-layer layout)
+    override the factory's where given (None keeps its default)."""
     if name not in REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(REGISTRY)}")
     kwargs: dict = {"dtype": resolve_dtype(dtype)} if dtype else {}
+    if remat is not None:
+        kwargs["remat"] = remat
+    if scan is not None:
+        kwargs["scan_layers"] = scan
     return REGISTRY[name](**kwargs)
 
 
 def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
-                          data_path: str = "", dtype: str = "", device=None
+                          data_path: str = "", dtype: str = "", device=None,
+                          remat: bool | None = None, scan: bool | None = None
                           ) -> tuple[Transformer, Iterator[torch.Tensor]]:
     """(model, batch iterator): the model from :func:`get_model` and the
     registry's synthetic token stream at the model's (vocab, max_seq), on
@@ -59,7 +66,7 @@ def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
     if data_path:
         raise NotImplementedError(f"file-backed data ({data_path!r}): "
                                   f"{ROADMAP_DATA}")
-    model = get_model(name, dtype)
+    model = get_model(name, dtype, remat=remat, scan=scan)
     batches = synthetic_tokens(batch_size, seq_len=model.config.max_seq,
                                vocab=model.config.vocab, seed=seed,
                                device=device)

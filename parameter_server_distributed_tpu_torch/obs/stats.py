@@ -1,7 +1,8 @@
 """Process-wide metric instruments: counters, gauges, log-bucket
 histograms — the port's own copy of the Counter/Gauge/Histogram/Registry
 part of parameter_server_distributed_tpu/obs/stats.py, which
-``DecodeServer`` reports into.
+``DecodeServer``, the RPC layer, the PS service and ``Worker`` report
+into — and ``MetricsLogger``, the worker's JSONL record per iteration.
 
 Buckets are geometric with ratio 2**(1/4), so a percentile read off the
 bucket midpoints is within ~9% of the true value; snapshots are plain
@@ -10,8 +11,11 @@ JSON (bucket maps, not percentiles) and merge losslessly.
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
+import time
 from typing import Any
 
 # value v (>0) lands in bucket ceil(log(v, BASE)); bucket i spans
@@ -178,3 +182,19 @@ def gauge(name: str) -> Gauge:
 
 def histogram(name: str) -> Histogram:
     return REGISTRY.histogram(name)
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics stream (path None: in memory only)."""
+
+    def __init__(self, path: str | None = None):
+        self._path = path
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def log(self, **fields: Any) -> dict:
+        record = {"t": time.time(), **fields}
+        if self._path:
+            with open(self._path, "a") as f:
+                f.write(json.dumps(record, default=float) + "\n")
+        return record

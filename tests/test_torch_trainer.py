@@ -251,9 +251,6 @@ def test_registry_batches_match_jax():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         Trainer(port_model(), device="cpu", mesh_config=object())
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Trainer(port_model(), device="cpu").compute_gradient_buckets(
-            {}, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_model_and_batches("small_lm", 2, data_path="x.bin",
                                        device="cpu")
