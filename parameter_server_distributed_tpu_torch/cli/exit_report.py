@@ -1,9 +1,12 @@
 """The exit report of a wire-round process: one JSON file written when a
 PS or worker process ends (``--report=PATH`` on cli/ps_main.py and
 cli/worker_main.py), with the kernel launch counts of the process, its
-peak card memory and its obs registry (counters, and each histogram's
-summary).  ``chip_smoke.py`` reads it to check and report the
-processes' work."""
+peak card memory and its obs registry (counters, gauges, and each
+histogram's summary).  Every report carries ``rpc.shm.fallback`` (0 when
+no connection fell back to gRPC) and the ``rpc.codec.native`` gauge of
+the codec the process resolves at exit (1 = the C++ codec), so a run
+that fell back to the Python codec or to gRPC shows it.
+``chip_smoke.py`` reads it to check and report the processes' work."""
 
 from __future__ import annotations
 
@@ -17,7 +20,10 @@ from ..obs import stats as obs_stats
 
 def write_exit_report(path: str, role: str) -> None:
     from ..ops import flash_attention, fused_update
+    from ..rpc.codec import active_codec
 
+    active_codec()                           # sets rpc.codec.native
+    obs_stats.counter("rpc.shm.fallback")    # present, 0 if never added
     snap = obs_stats.REGISTRY.snapshot()
     report = {
         "role": role,
@@ -25,6 +31,7 @@ def write_exit_report(path: str, role: str) -> None:
         "peak_mem_bytes": (torch.cuda.max_memory_allocated()
                            if torch.cuda.is_initialized() else 0),
         "counters": snap["counters"],
+        "gauges": snap["gauges"],
         "histograms": {name: obs_stats.REGISTRY.histogram(name).summary()
                        for name in snap["histograms"]},
     }

@@ -13,10 +13,12 @@ PS.
 
 Flags beyond the reference's argv (src/parameter_main.cpp:6-18):
     --lr=F           learning rate (default 1.0, the reference's implicit lr)
-    --optimizer=S    sgd | momentum | adam | adamw | lion (host numpy), or
-                     pallas_{sgd,momentum,adam} (the fused-update kernels)
-                     / device_{sgd,momentum,adam,adamw,adamw_bf16} for a
-                     store on the device (core/optimizer.py make_optimizer)
+    --optimizer=S    pallas_sgd (the default: the reference's SGD rule on
+                     the fused-update kernel, bit-exact with the host
+                     numpy sgd), pallas_{momentum,adam}, or
+                     device_{sgd,momentum,adam,adamw,adamw_bf16} for a
+                     store on the device, or sgd | momentum | adam | adamw
+                     | lion on the host (core/optimizer.py make_optimizer)
     --staleness=N    bounded-staleness async mode (0 = synchronous)
     --aggregation=S  streaming (default) | buffered
     --ckpt-dir=D     checkpoint directory (default .)
@@ -38,8 +40,9 @@ import logging
 import signal
 import sys
 
-from ..config import (DEFAULT_PS_PORT, ParameterServerConfig, parse_argv,
-                      parse_host_port, require_flag_value)
+from ..config import (DEFAULT_OPTIMIZER, DEFAULT_PS_PORT,
+                      ParameterServerConfig, parse_argv, parse_host_port,
+                      require_flag_value)
 
 UNPORTED_FLAGS = {
     "elastic": "ROADMAP.md Queue 1, item 11 (quorum barriers, free-run)",
@@ -71,7 +74,7 @@ def build_config(argv: list[str]) -> tuple[ParameterServerConfig, str]:
         checkpoint_interval=int(positional[2]) if len(positional) > 2
         else 10,
         learning_rate=float(flags.get("lr", 1.0)),
-        optimizer=flags.get("optimizer", "sgd"),
+        optimizer=flags.get("optimizer", DEFAULT_OPTIMIZER),
         staleness_bound=int(flags.get("staleness", 0)),
         aggregation=flags.get("aggregation", ""),
         checkpoint_dir=flags.get("ckpt-dir", "."),

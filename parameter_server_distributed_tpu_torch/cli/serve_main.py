@@ -116,6 +116,8 @@ def main(argv: list[str] | None = None) -> int:
     device = resolve_device(flags.get("device"))
     name = flags.get("model", "small_lm")
     model = get_model(name, dtype=flags.get("dtype", ""))
+    if not hasattr(model.config, "vocab"):
+        raise SystemExit(f"--model={name}: serving takes a language model")
     seed = int(flags.get("seed", 0))
     params = model.init_params(seed, device=device)
     print(f"serving: {name} fresh weights from seed {seed} on {device}",

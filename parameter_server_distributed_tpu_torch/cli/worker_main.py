@@ -10,7 +10,8 @@ non-empty checkpoint_path asks the PS to restore it at startup, tolerant
 of failure (reference: src/worker_main.cpp:28-38).
 
 Flags:
-    --model=NAME     registry LM (default llama_350m)
+    --model=NAME     registry model (default llama_350m): a transformer
+                     LM, or mnist_mlp / mlp_1b (models/registry.py)
     --batch=N        per-worker batch size (default 32)
     --seed=N         data seed (default: the worker id, so streams differ)
     --dtype=f32|bf16 model compute dtype (default: the model's)
@@ -53,7 +54,7 @@ UNPORTED_FLAGS = {
 def build_worker(config: WorkerConfig, seed: int | None = None,
                  remat: bool | None = None,
                  scan: bool | None = None) -> Worker:
-    """A Worker over a registry model and its synthetic token stream
+    """A Worker over a registry model and its synthetic data stream
     (seeded with the worker id unless ``seed`` is given), on
     ``config.device``."""
     data_seed = config.worker_id if seed is None else seed

@@ -27,6 +27,9 @@ SYNC_POLL_MAX = 200              # reference: src/worker.cpp:373
 SYNC_OUTER_RETRIES = 3           # reference: src/worker.cpp:334
 RETRY_MAX_ATTEMPTS = 5           # reference: src/worker.cpp:130
 RETRY_BASE_DELAY_S = 0.1         # reference: src/worker.cpp:135 (100ms * 2^n)
+# the PS's optimizer: the reference's SGD rule on the fused-update kernel
+# (on the card unless the config's device is "cpu")
+DEFAULT_OPTIMIZER = "pallas_sgd"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +51,7 @@ class ParameterServerConfig:
     checkpoint_dir: str = "."
     checkpoint_keep: int = 0     # keep the newest N checkpoints (0 = all)
     learning_rate: float = 1.0   # reference applies param -= mean_grad
-    optimizer: str = "sgd"       # core/optimizer.py make_optimizer names
+    optimizer: str = DEFAULT_OPTIMIZER   # core/optimizer.py make_optimizer
     momentum: float = 0.9
     weight_decay: float = 1e-4   # adamw variants only
     staleness_bound: int = 0     # 0 = strictly synchronous (reference)

@@ -3,11 +3,15 @@ parameter_server_distributed_tpu/core/optimizer.py.
 
 ``HostOptimizer`` is the protocol ``ParameterServerCore`` calls.  The
 host optimizers (``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Lion``)
-apply their rule over float32 numpy stores with the reference's numpy
+apply their rule over float32 numpy stores.  Where the reference calls
+its C++ library (``SGD``, ``Momentum``, ``Adam``, ``AdamW``) the port
+calls its own copy of it (native/), and where the reference falls back
+to numpy the port does too: the numpy paths are the reference's
 sequences, one ufunc per operation in the same order and with the same
-f32 scalars, so they are bit-for-bit the reference's numpy path (its
-native C++ library is not ported).  Outputs are fresh arrays (served
-param dicts hold the old ones); slots update in place.
+f32 scalars, so each path is bit for bit the reference's same path.  The
+native Adam multiplies ``(1-b2)*g*g`` where numpy takes ``g*g*(1-b2)``,
+as the reference's two paths do.  Outputs are fresh arrays (served param
+dicts hold the old ones); slots update in place.
 
 Striping: optimizer state is keyed per tensor name, so the striped
 barrier close calls :meth:`HostOptimizer.tick` once per logical step and
@@ -30,6 +34,9 @@ from typing import Mapping
 
 import numpy as np
 
+from ..native import (adam_native, adamw_native, momentum_native,
+                      sgd_native)
+from ..native import lib as native_lib
 from ..obs import stats as obs_stats
 
 log = logging.getLogger("pst.optimizer")
@@ -95,14 +102,20 @@ class SGD(HostOptimizer):
 
     def apply_shard(self, params: Mapping, grads: Mapping) -> dict:
         lr = np.float32(self.learning_rate)
+        use_native = native_lib() is not None
         out = {}
         for name, p in params.items():
             p = np.asarray(p, np.float32)
             if name not in grads:
                 out[name] = p
                 continue
-            out[name] = np.subtract(p, np.multiply(
-                np.asarray(grads[name], np.float32), lr))
+            g = np.asarray(grads[name], np.float32)
+            if use_native:
+                p_new = np.array(p, np.float32)   # a fresh contiguous copy
+                if sgd_native(p_new, g, float(lr)):
+                    out[name] = p_new
+                    continue
+            out[name] = np.subtract(p, np.multiply(g, lr))
         return out
 
 
@@ -119,6 +132,7 @@ class Momentum(HostOptimizer):
     def apply_shard(self, params: Mapping, grads: Mapping) -> dict:
         lr = np.float32(self.learning_rate)
         mu = np.float32(self.momentum)
+        use_native = native_lib() is not None
         out = {}
         for name, p in params.items():
             p = np.asarray(p, np.float32)
@@ -127,6 +141,15 @@ class Momentum(HostOptimizer):
                 continue
             g = np.asarray(grads[name], np.float32)
             v = self.velocity.get(name)
+            if use_native:
+                # fresh params (served dicts hold the old ones); the
+                # velocity updates in place (state_dict copies it)
+                p_new = np.array(p, np.float32)
+                v_new = _owned_f32(v) if v is not None else np.zeros_like(g)
+                if momentum_native(p_new, g, v_new, float(lr), float(mu)):
+                    self.velocity[name] = v_new
+                    out[name] = p_new
+                    continue
             if v is None:
                 # an owned copy: the slot updates in place from now on
                 v = np.array(g, np.float32)
@@ -176,6 +199,24 @@ class Adam(HostOptimizer):
         self.m[name], self.v[name] = m, v
         return m, v
 
+    def _native_step(self, name: str, p: np.ndarray, g: np.ndarray,
+                     wd: float | None, out: dict) -> bool:
+        """One tensor through the fused C++ pass, AdamW's when ``wd`` is
+        not None (its sweep rounds otherwise than Adam's even at 0):
+        fresh params into ``out``, m and v updated in place.  False when
+        the library declines, and nothing has changed."""
+        m = _owned_f32(self.m.get(name, np.zeros_like(g)))
+        v = _owned_f32(self.v.get(name, np.zeros_like(g)))
+        p_new = np.array(p, np.float32)
+        args = (p_new, g, m, v, float(np.float32(self.learning_rate)),
+                self.b1, self.b2, self.eps, self.step)
+        if not (adam_native(*args) if wd is None
+                else adamw_native(*args, wd)):
+            return False
+        self.m[name], self.v[name] = m, v
+        out[name] = p_new
+        return True
+
     def _denom(self, v: np.ndarray, bc2: float) -> np.ndarray:
         """sqrt(v / bc2) + eps."""
         d = np.divide(v, bc2, out=np.empty_like(v))
@@ -187,13 +228,17 @@ class Adam(HostOptimizer):
         lr = np.float32(self.learning_rate)
         bc1 = 1.0 - self.b1 ** self.step
         bc2 = 1.0 - self.b2 ** self.step
+        use_native = native_lib() is not None
         out = {}
         for name, p in params.items():
             p = np.asarray(p, np.float32)
             if name not in grads:
                 out[name] = p
                 continue
-            m, v = self._moments(name, np.asarray(grads[name], np.float32))
+            g = np.asarray(grads[name], np.float32)
+            if use_native and self._native_step(name, p, g, None, out):
+                continue
+            m, v = self._moments(name, g)
             # p - lr * (m / bc1) / denom: lr multiplied before the divide
             # (explicit outputs: a ufunc on 0-d arrays without out=
             # returns a scalar, which cannot be an out= target)
@@ -231,6 +276,7 @@ class AdamW(Adam):
         lr = np.float32(self.learning_rate)
         bc1 = 1.0 - self.b1 ** self.step
         bc2 = 1.0 - self.b2 ** self.step
+        use_native = native_lib() is not None
         out = {}
         for name, p in params.items():
             p = np.asarray(p, np.float32)
@@ -238,7 +284,10 @@ class AdamW(Adam):
                 out[name] = p
                 continue
             wd = self.weight_decay if p.ndim >= 2 else 0.0
-            m, v = self._moments(name, np.asarray(grads[name], np.float32))
+            g = np.asarray(grads[name], np.float32)
+            if use_native and self._native_step(name, p, g, wd, out):
+                continue
+            m, v = self._moments(name, g)
             step = np.divide(m, bc1, out=np.empty_like(p))
             np.divide(step, self._denom(v, bc2), out=step)   # adam term
             if wd:

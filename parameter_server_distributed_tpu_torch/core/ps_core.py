@@ -24,7 +24,8 @@ Aggregation (``aggregation`` / ``PSDT_AGGREGATION``): **streaming** (the
 default) folds every push into a per-iteration float32 accumulator on
 arrival, first push wins for a duplicate, and runs the scale and the
 optimizer apply outside ``_state_lock``; **buffered** keeps each
-worker's whole store (last push wins) and takes the mean at the close.
+worker's whole store (last push wins) and takes the mean at the close
+(with host SGD and the native library, one fused mean-SGD pass).
 Stripes (``stripes`` / ``PSDT_STRIPES``, default the usable cores)
 partition the store by tensor name: streaming folds run their numpy adds
 under per-stripe locks outside ``_state_lock``, and a host optimizer's
@@ -58,6 +59,8 @@ import numpy as np
 import torch
 
 from ..async_sgd.damping import async_damping
+from ..native import lib as native_lib
+from ..native import mean_over_workers_native, mean_sgd_native
 from ..obs import stats as obs_stats
 from .optimizer import SGD, HostOptimizer
 from .stripes import partition_names, run_striped, stripe_count, stripe_of
@@ -254,6 +257,8 @@ class ParameterServerCore:
         self._obs_device_applies = obs_stats.counter("ps.apply.device")
         # barrier-completion broadcast: wait_for_aggregation parks here
         self._barrier_cv = threading.Condition(self._state_lock)
+        # set by release_waiters() when the server stops
+        self._waiters_released = False
         self._iteration_states: "OrderedDict[int, IterationState]" = \
             OrderedDict()
         self._static_total_workers = int(total_workers)
@@ -382,6 +387,15 @@ class ParameterServerCore:
         :meth:`checkpoint_state_locked` (the PS service's checkpoints do)
         and must not take the state lock.  None removes it."""
         self._apply_hook = fn
+
+    def release_waiters(self) -> None:
+        """From now on :meth:`wait_for_aggregation` returns at once, not
+        ready, and every call parked in it wakes: a stopping server's
+        handler threads return instead of holding the process to the
+        barrier timeout (port-only)."""
+        with self._barrier_cv:
+            self._waiters_released = True
+            self._barrier_cv.notify_all()
 
     # ----------------------------------------------------------------- params
     def initialize_parameters(self, params: Mapping[str, np.ndarray]) -> None:
@@ -669,7 +683,9 @@ class ParameterServerCore:
                     state.aggregating = False
                     return
             else:
-                self._apply_update(_mean_over_workers(state.worker_gradients))
+                if not self._apply_fused_mean_sgd(state.worker_gradients):
+                    self._apply_update(
+                        _mean_over_workers(state.worker_gradients))
                 state.worker_gradients.clear()
                 self._grad_buffer_note(-state.buffer_bytes)
                 state.buffer_bytes = 0
@@ -818,14 +834,54 @@ class ParameterServerCore:
             self._params_version += 1
         self._note_device_apply(new_params)
 
+    def _apply_fused_mean_sgd(self,
+                              worker_gradients: Mapping[int, TensorStore]
+                              ) -> bool:
+        """The buffered close's one-pass native ``param -= lr *
+        mean(grads)`` (``psdt_mean_sgd``), as the reference's.  False,
+        asking for the mean-then-optimizer path, for an optimizer other
+        than host SGD, an empty store (the bootstrap needs the mean
+        itself) or without the native library.  Caller holds
+        _state_lock."""
+        if type(self._optimizer) is not SGD or native_lib() is None:
+            return False
+        by_name: dict[str, list[np.ndarray]] = {}
+        for grads in worker_gradients.values():
+            for name, g in grads.items():
+                by_name.setdefault(name, []).append(
+                    np.ascontiguousarray(g, np.float32))
+        lr = float(self._optimizer.learning_rate)
+        with self._params_lock:
+            if not self._params:
+                return False
+            new_params: TensorStore = {}
+            for name, p in self._params.items():
+                arrays = by_name.get(name)
+                if not arrays:
+                    new_params[name] = np.asarray(p, np.float32)
+                    continue
+                p_new = np.array(p, np.float32)   # a fresh contiguous copy
+                if not mean_sgd_native(p_new, arrays, lr):
+                    acc = arrays[0].copy()
+                    for g in arrays[1:]:
+                        acc += g
+                    p_new = p_new - np.float32(lr / len(arrays)) * acc
+                new_params[name] = p_new
+            self._params = new_params
+            self._params_version += 1
+        return True
+
     def _apply_update(self, mean_grads: TensorStore) -> None:
         """Applies are serialized by the caller (_state_lock on the async
         and buffered paths, _apply_lock on the streaming close); only
         _params_lock is taken here, briefly in async mode."""
         with self._params_lock:
             if not self._params:
-                # the bootstrap quirk: the first mean becomes the params
-                self._params = dict(mean_grads)
+                # the bootstrap quirk: the first mean becomes the params,
+                # in name order (striped folds insert in thread order, and
+                # the store's order is its checkpoints' layout)
+                self._params = {name: mean_grads[name]
+                                for name in sorted(mean_grads)}
                 self._params_event = None
                 self._params_version += 1
                 return
@@ -875,9 +931,10 @@ class ParameterServerCore:
 
     def wait_for_aggregation(self, iteration: int,
                              timeout: float) -> tuple[bool, int, int]:
-        """Block until ``iteration``'s aggregation completes or the timeout
-        passes: (ready, workers_received, total_workers).  Woken by the
-        close; re-reads the (possibly elastic) width every 250 ms."""
+        """Block until ``iteration``'s aggregation completes, the timeout
+        passes or :meth:`release_waiters` is called: (ready,
+        workers_received, total_workers).  Woken by the close; re-reads
+        the (possibly elastic) width every 250 ms."""
         if not self.synchronous:
             return True, 1, self.barrier_width()
         deadline = time.monotonic() + timeout
@@ -895,7 +952,7 @@ class ParameterServerCore:
                     if state.aggregated:
                         return True, state.workers_at_aggregation, total
                 remaining = deadline - time.monotonic()
-                if remaining <= 0:
+                if remaining <= 0 or self._waiters_released:
                     return False, received, total
                 self._barrier_cv.wait(min(remaining, 0.25))
 
@@ -995,13 +1052,17 @@ def _mean_over_workers(worker_gradients: Mapping[int, TensorStore]
                        ) -> TensorStore:
     """Element-wise mean over the gradients of the workers that actually
     contributed: sum, then scale by 1/contributors (not the configured
-    total)."""
+    total); the native ``psdt_mean`` when the library is there."""
     by_name: dict[str, list[np.ndarray]] = {}
     for grads in worker_gradients.values():
         for name, g in grads.items():
             by_name.setdefault(name, []).append(np.asarray(g, np.float32))
     out: TensorStore = {}
     for name, arrays in by_name.items():
+        mean = mean_over_workers_native(arrays)
+        if mean is not None:
+            out[name] = mean
+            continue
         acc = arrays[0].copy()
         for g in arrays[1:]:
             acc += g

@@ -1,8 +1,11 @@
-"""Synthetic token data: the port's copy of ``synthetic_tokens`` from
+"""Synthetic data: the port's copy of ``synthetic_tokens``,
+``ClassClusterDataset``, ``xy_batch_stream`` and ``synthetic_mnist`` from
 parameter_server_distributed_tpu/data/synthetic.py.  The numbers come
-from the same numpy stream as the JAX package's, so one seed gives both
-packages the same batches; the port's batches are int32 tensors on the
-card unless the caller asks for the CPU."""
+from the same numpy streams as the JAX package's, so one seed gives both
+packages the same batches.  Token batches are int32 tensors on the card
+unless the caller asks for the CPU; the classification datasets yield
+numpy ``(x, y)`` batches, which the registry moves to the device
+(models/registry.py)."""
 
 from __future__ import annotations
 
@@ -28,3 +31,51 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab: int = 32000,
             yield torch.from_numpy(batch).to(dev)
 
     return stream()
+
+
+def xy_batch_stream(x: np.ndarray, y: np.ndarray, batch_size: int,
+                    seed: int = 0, drop_remainder: bool = True
+                    ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Endless shuffled ``(x, y)`` batches, reshuffled each epoch from the
+    ``(seed, epoch)`` sequence."""
+    epoch = 0
+    while True:
+        rng = np.random.default_rng([seed, epoch])
+        order = rng.permutation(len(y))
+        end = (len(order) // batch_size) * batch_size if drop_remainder \
+            else len(order)
+        for start in range(0, end, batch_size):
+            idx = order[start:start + batch_size]
+            yield x[idx], y[idx]
+        epoch += 1
+
+
+class ClassClusterDataset:
+    """Gaussian class-cluster classification data (an MNIST stand-in:
+    training measurably lowers the loss)."""
+
+    def __init__(self, num_features: int, num_classes: int,
+                 num_examples: int = 4096, seed: int = 0, scale: float = 2.0):
+        rng = np.random.default_rng(seed)
+        self.num_features = num_features
+        self.num_classes = num_classes
+        self.centers = rng.standard_normal(
+            (num_classes, num_features)).astype(np.float32)
+        labels = rng.integers(0, num_classes, size=num_examples)
+        noise = rng.standard_normal(
+            (num_examples, num_features)).astype(np.float32)
+        self.x = (scale * self.centers[labels] + noise).astype(np.float32)
+        self.y = labels.astype(np.int32)
+
+    def __len__(self) -> int:
+        return len(self.y)
+
+    def batch_stream(self, batch_size: int, seed: int = 0
+                     ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Endless stream of batches (reshuffled each epoch)."""
+        return xy_batch_stream(self.x, self.y, batch_size, seed=seed)
+
+
+def synthetic_mnist(num_examples: int = 4096,
+                    seed: int = 0) -> ClassClusterDataset:
+    return ClassClusterDataset(784, 10, num_examples, seed)

@@ -1,5 +1,6 @@
-"""Parameter stores from numpy: the JAX package's parameters, converted
-with ``np.asarray``, become the port's store of torch tensors."""
+"""Parameter stores from numpy: the JAX package's parameters (a
+transformer's or an MLP's), converted with ``np.asarray``, become the
+port's store of torch tensors."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .mlp import MLP, MLPConfig
 from .transformer import (Transformer, TransformerConfig, stack_layers,
                           unstack_layers)
 
@@ -24,20 +26,24 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def params_from_numpy(store: Mapping[str, np.ndarray],
-                      config: TransformerConfig,
+                      config: TransformerConfig | MLPConfig,
                       device=None) -> dict[str, torch.Tensor]:
-    """Convert a numpy parameter store, in the unrolled (``layer<i>/*``)
-    or the stacked (``blocks/*``) layout, into the layout ``config``
-    names, in ``config.dtype``, on ``device`` (default: the card).
+    """Convert a numpy parameter store into the layout ``config`` names,
+    in ``config.dtype``, on ``device`` (default: the card): a
+    transformer's in the unrolled (``layer<i>/*``) or the stacked
+    (``blocks/*``) layout, or an MLP's (``layer<i>/w``, ``layer<i>/b``).
     Raises on names or shapes the config does not expect."""
     dev = resolve_device(device)
     params = {name: _tensor(value) for name, value in store.items()}
-    stacked = any(name.startswith("blocks/") for name in params)
-    if config.scan_layers and not stacked:
-        params = stack_layers(params, config.n_layers)
-    elif stacked and not config.scan_layers:
-        params = unstack_layers(params)
-    expected = Transformer(config).param_shapes()
+    if isinstance(config, MLPConfig):
+        expected = MLP(config.layer_sizes, config.dtype).param_shapes()
+    else:
+        stacked = any(name.startswith("blocks/") for name in params)
+        if config.scan_layers and not stacked:
+            params = stack_layers(params, config.n_layers)
+        elif stacked and not config.scan_layers:
+            params = unstack_layers(params)
+        expected = Transformer(config).param_shapes()
     got = {name: tuple(value.shape) for name, value in params.items()}
     if got != expected:
         drift = sorted(set(got) ^ set(expected)) + sorted(

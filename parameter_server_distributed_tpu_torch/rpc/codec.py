@@ -1,9 +1,23 @@
-"""The wire payload codec: the port's copy of ``PythonCodec`` from
-parameter_server_distributed_tpu/rpc/codec.py.
+"""The wire payload codec: the port's copy of
+parameter_server_distributed_tpu/rpc/codec.py, one interface and two
+implementations.
 
 Every packed tensor payload on the wire (the ``Tensor.packed`` extension
-field, rpc/messages.py) is produced and consumed here.  The layouts are
-the reference's, byte for byte (little-endian):
+field, rpc/messages.py) is produced and consumed here:
+
+- :class:`PythonCodec`, in numpy: the byte-identity oracle and the
+  fallback that needs no compiler;
+- :class:`NativeCodec`, the C++ fast path (native/psdt_native.cpp): one
+  pass over pointers into the caller's arrays and the encoder's message
+  buffer, outside the GIL.  An operation the library cannot take falls
+  back to numpy per call: never another answer, at worst a slower one.
+
+:func:`active_codec` resolves per call to the native codec whenever
+``native.lib()`` is available and enabled (``PSDT_NATIVE=0`` or
+``native.set_enabled(False)`` forces numpy), and records the choice in
+the ``rpc.codec.native`` gauge (1 = native).
+
+The layouts are the reference's, byte for byte (little-endian):
 
 - ``WIRE_RAW_F32``:  n * f32
 - ``WIRE_BF16``:     n * bf16 (round-to-nearest-even)
@@ -14,19 +28,21 @@ Top-k selection is part of the contract: elements with |v| strictly above
 the k-th largest |v|, ties at the threshold filled in ascending index
 order, NaNs filling any slots left (:func:`topk_indices`).
 
-The reference casts to bf16 through ``ml_dtypes`` (which ships with
-jax); the port rounds in numpy on the bit pattern, with the same answer
-for every input: round-to-nearest-even, and a NaN becomes the quiet NaN
-of its sign.
-
-Only the Python codec is ported.  The reference's C++ fast path
-(``NativeCodec``) is ROADMAP.md Queue 1, item 3c: :func:`native_codec`
-raises naming it.
+The reference's Python codec casts to bf16 through ``ml_dtypes`` (which
+ships with jax); the port's rounds in numpy on the bit pattern, with the
+same answer for every input: round-to-nearest-even, and a NaN becomes the
+quiet NaN of its sign.  The two C++ libraries keep a NaN's top payload
+bits instead (``f32_to_bf16``), so on a NaN whose payload reaches them the
+Python and native codecs of either package differ; every other input,
+infinities and subnormals included, packs to the same bytes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
+from ..obs import stats as obs_stats
 
 # Wire encodings for Tensor payloads.  WIRE_F32 is the reference encoding
 # (packed `repeated float`, field 3) and never reaches the codec; the
@@ -44,10 +60,6 @@ WIRE_DTYPE_NAMES = {"f32": WIRE_F32, "raw": WIRE_RAW_F32, "bf16": WIRE_BF16,
 PACKED_WIRE_DTYPES = (WIRE_RAW_F32, WIRE_BF16, WIRE_INT8, WIRE_TOPK)
 
 TOPK_DEFAULT_DENSITY = 0.01  # fraction of entries a topk tensor keeps
-
-ROADMAP_NATIVE = ("ROADMAP.md Queue 1, item 3c (the same-host transport and "
-                  "the native host codec)")
-
 
 def topk_k(size: int, density: float) -> int:
     """Kept-entry count for a WIRE_TOPK payload of ``size`` elements."""
@@ -163,14 +175,54 @@ class PythonCodec:
         raise ValueError(f"not a packed wire dtype: {wire_dtype}")
 
 
+class NativeCodec(PythonCodec):
+    """The C++ fast path (native/psdt_native.cpp).  Each operation tries
+    the native function and takes the numpy path when it declines
+    (library unavailable, an unsuitable layout, or a malformed payload
+    that the Python path rejects loudly).  ``WIRE_RAW_F32`` is a copy
+    either way, left to numpy."""
+
+    name = "native"
+
+    def pack_into(self, wire_dtype: int, src: np.ndarray, dst,
+                  k: int = 0) -> None:
+        if wire_dtype == WIRE_BF16:
+            if native.pack_bf16_native(src, dst):
+                return
+        elif wire_dtype == WIRE_INT8:
+            if native.quant_int8_native(src, dst):
+                return
+        elif wire_dtype == WIRE_TOPK:
+            if native.topk_pack_native(src, k, dst):
+                return
+        super().pack_into(wire_dtype, src, dst, k)
+
+    def unpack(self, wire_dtype: int, raw, total: int) -> np.ndarray:
+        if wire_dtype == WIRE_BF16:
+            out = np.empty(len(raw) // 2, np.float32)
+            if native.unpack_bf16_native(raw, out):
+                return out
+        elif wire_dtype == WIRE_INT8:
+            out = np.empty(max(0, len(raw) - 4), np.float32)
+            if native.dequant_int8_native(raw, out):
+                return out
+        elif wire_dtype == WIRE_TOPK:
+            out = np.empty(total, np.float32)
+            if native.topk_unpack_native(raw, out):
+                return out
+        return super().unpack(wire_dtype, raw, total)
+
+
 _PYTHON = PythonCodec()
+_NATIVE = NativeCodec()
 
 
 def active_codec() -> PythonCodec:
-    """The process-wide codec: the Python codec, the port's only one."""
-    return _PYTHON
-
-
-def native_codec():
-    """The reference's C++ codec, which the port does not carry yet."""
-    raise NotImplementedError(f"NativeCodec: {ROADMAP_NATIVE}")
+    """The process-wide codec: native when the library is available and
+    enabled, numpy otherwise, resolved per call (a flip of
+    ``native.set_enabled`` takes effect at once) and recorded in the
+    ``rpc.codec.native`` gauge."""
+    codec = _NATIVE if native.lib() is not None else _PYTHON
+    obs_stats.gauge("rpc.codec.native").set(1.0 if codec is _NATIVE
+                                            else 0.0)
+    return codec

@@ -26,23 +26,36 @@ reference's unary RPCs the first time a server answers UNIMPLEMENTED.  A
 tensor larger than the chunk budget rides alone in one oversized chunk:
 the budget groups, it does not split.
 
-Not ported: the same-host shared-memory transport (the client never
-negotiates it; ROADMAP.md Queue 1, item 3c), versioned delta serving
-(item 12) and device-side decode for the sharded device apply (item 5).
+Same host: :class:`PSClient` negotiates the shared-memory transport
+(rpc/shm_transport.py) on its first fused round and runs fused rounds
+over the rings from then on, the same chunk messages as bytes.  A
+refusal, UNIMPLEMENTED (a reference PS), an attach failure or a
+transport error mid-round downgrades the connection to gRPC for good,
+and each downgrade counts one ``rpc.shm.fallback``; a failed round is
+replayed over gRPC.
+
+Not ported: versioned delta serving (ROADMAP.md Queue 1, item 12) and
+device-side decode for the sharded device apply (item 5).
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import time
 from typing import Iterable, Iterator, Sequence
 
 import grpc
 
+from ..obs import stats as obs_stats
 from . import messages as m
+from . import shm_transport
 from .service import RpcClient
 from .service import status_code as _status_code
 from .wire import (WT_LEN, WT_VARINT, _len_delimited_size, _tag,
                    _varint_size, _Writer, encode_varint)
+
+log = logging.getLogger("pst.data_plane")
 
 # Default chunk budget for streamed pushes/pulls; PSDT_STREAM_CHUNK_BYTES
 # overrides, 0 disables streaming entirely.
@@ -183,6 +196,7 @@ class PSClient(RpcClient):
                  methods=None, chunk_bytes: int | None = None):
         methods = dict(methods or m.PARAMETER_SERVER_METHODS)
         methods.update(m.PARAMETER_SERVER_STREAM_METHODS)
+        methods.update(shm_transport.SHM_METHODS)
         super().__init__(target, service, methods)
         self.chunk_bytes = (stream_chunk_bytes() if chunk_bytes is None
                             else chunk_bytes)
@@ -191,12 +205,76 @@ class PSClient(RpcClient):
         self._stream_ok: bool | None = None
         # the same tri-state for the fused push→barrier→pull method
         self._fused_ok: bool | None = None
+        # the same-host rings: None = not negotiated yet; False = gRPC for
+        # good (refused, UNIMPLEMENTED, attach failure, transport error)
+        self._shm_conn: shm_transport.ShmClientConnection | None = None
+        self._shm_ok: bool | None = None
 
     def _streaming(self) -> bool:
         return self.chunk_bytes > 0 and self._stream_ok is not False
 
     def _fused(self) -> bool:
         return self.chunk_bytes > 0 and self._fused_ok is not False
+
+    @property
+    def shm_active(self) -> bool:
+        """True while a shared-memory connection carries the fused
+        rounds."""
+        return self._shm_conn is not None and self._shm_ok is True
+
+    def close(self) -> None:
+        self._drop_shm(permanent=False)
+        super().close()
+
+    # ------------------------------------------------------- shm transport
+    def _drop_shm(self, permanent: bool = True) -> None:
+        conn, self._shm_conn = self._shm_conn, None
+        if permanent:
+            self._shm_ok = False
+        if conn is not None:
+            conn.close()
+
+    def _downgrade(self, why: str) -> None:
+        """gRPC for good on this connection, counted."""
+        log.info("shm transport to %s: %s; using gRPC", self._target, why)
+        self._drop_shm()
+        obs_stats.counter("rpc.shm.fallback").add()
+
+    def _shm_connection(self, timeout):
+        """The negotiated shared-memory connection, negotiating on first
+        use; None when the round rides gRPC: for good after a refusal,
+        UNIMPLEMENTED or an attach failure, for this round only when the
+        negotiation call itself failed otherwise."""
+        if not shm_transport.enabled() or self._shm_ok is False:
+            return None
+        if self._shm_conn is not None:
+            return self._shm_conn
+        try:
+            resp = self.call(
+                "NegotiateShm",
+                shm_transport.ShmNegotiateRequest(
+                    host_id=shm_transport.host_id(),
+                    ring_bytes=shm_transport.ring_bytes()),
+                timeout=timeout if timeout else 10.0)
+        except grpc.RpcError as exc:
+            if _status_code(exc) == grpc.StatusCode.UNIMPLEMENTED:
+                self._downgrade("NegotiateShm is UNIMPLEMENTED")
+            return None
+        if not resp.accepted:
+            self._downgrade(f"refused ({resp.message})")
+            return None
+        try:
+            self._shm_conn = shm_transport.ShmClientConnection(
+                resp.c2s_name, resp.s2c_name, int(resp.ring_bytes),
+                doorbell_addr=resp.doorbell)
+        except (OSError, ValueError, ImportError) as exc:
+            # not reachable from this process (another /dev/shm)
+            self._downgrade(f"segment attach failed ({exc})")
+            return None
+        self._shm_ok = True
+        log.info("shm transport active to %s (ring %d MB x2)", self._target,
+                 int(resp.ring_bytes) >> 20)
+        return self._shm_conn
 
     # ------------------------------------------------------------------ push
     def push_gradients(self, update: m.GradientUpdate,
@@ -267,6 +345,28 @@ class PSClient(RpcClient):
                 yield m.GradientUpdate(worker_id=worker_id,
                                        iteration=iteration, gradients=[],
                                        pull_wire_dtype=pull_wire_dtype)
+
+        # same host: the same chunk messages, as bytes, through the rings;
+        # a transport error downgrades for good and the round is replayed
+        # over gRPC below (tensors_fn replays its tensors)
+        conn = self._shm_connection(timeout)
+        if conn is not None:
+            calls, latency = self._instruments["PushPullStream"]
+            calls.add()
+            t0 = time.perf_counter()
+            try:
+                frames = conn.round_trip(
+                    (chunk.encode() for chunk in chunks()), timeout)
+                result = self._assemble_fused(
+                    (m.PushPullResponse.decode(memoryview(f))
+                     for f in frames), on_chunk)
+                self._fused_ok = True
+                return result
+            except shm_transport.ShmTransportError as exc:
+                log.warning("shm fused round failed (%s)", exc)
+                self._downgrade("round failed")
+            finally:
+                latency.observe(time.perf_counter() - t0)
 
         try:
             result = self._assemble_fused(

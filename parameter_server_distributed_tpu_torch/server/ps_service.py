@@ -22,19 +22,25 @@ epoch (:class:`_EpochSaver`).
   device optimizer's card tensors through ``core.tensor.to_host``, one
   packed copy.
 
+- **Same-host rings**: ``NegotiateShm`` (rpc/shm_transport.py) gives a
+  worker on this host two shared-memory rings and a thread that runs
+  each of its fused rounds through the same ``PushPullStream`` handler,
+  so bytes and semantics do not depend on the transport.
+
 Registered: ``ReceiveGradients``, ``ServeParameters``, ``CheckSyncStatus``,
-``SaveCheckpoint``, ``LoadCheckpoint`` and the streams
-``PushGradientsStream``, ``ServeParametersStream`` and ``PushPullStream``.
-Not registered, so answered UNIMPLEMENTED: ``NegotiateShm`` (ROADMAP.md
-Queue 1, item 3c), the delta RPCs and ``SubscribeWeights`` (item 12), and
+``SaveCheckpoint``, ``LoadCheckpoint``, the streams
+``PushGradientsStream``, ``ServeParametersStream`` and ``PushPullStream``,
+and ``NegotiateShm``.  Not registered, so answered UNIMPLEMENTED: the
+delta RPCs and ``SubscribeWeights`` (ROADMAP.md Queue 1, item 12), and
 the replication and sharded-update RPCs (item 13).  The JAX package's
 clients fall back on each of them by themselves.
 
 Timings land in the port's obs registry: ``ps.apply_s`` (fold commit and
 apply, net of RPC plumbing), ``ps.serve_s``, ``ps.barrier_wait_s`` (how
-long fused handlers park on the barrier) and the cache's
-``ps.serve.cache_hit`` / ``ps.serve.cache_miss``; the core adds
-``ps.barrier_close_s``.
+long fused handlers park on the barrier), the cache's
+``ps.serve.cache_hit`` / ``ps.serve.cache_miss`` and ``ps.serve.encode_s``
+(one encode of the store, the part of a serve that is not transfer); the
+core adds ``ps.barrier_close_s``.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from ..core.tensor import from_wire, to_wire
 from ..device import resolve_device
 from ..obs import stats as obs_stats
 from ..rpc import messages as m
+from ..rpc import shm_transport
 from ..rpc.data_plane import (PreEncodedParameterUpdate,
                               encode_parameter_record_groups, split_tensors,
                               stream_chunk_bytes)
@@ -141,12 +148,17 @@ class ParameterServerService:
     def __init__(self, core: ParameterServerCore, ckpt: CheckpointManager):
         self.core = core
         self.ckpt = ckpt
+        # the same-host rings; the handler is looked up per round, so an
+        # instance-level override governs the shm path too
+        self.shm_server = shm_transport.ShmServer(
+            lambda chunks, ctx: self.PushPullStream(chunks, ctx))
         self._obs_apply = obs_stats.histogram("ps.apply_s")
         self._obs_serve = obs_stats.histogram("ps.serve_s")
         self._obs_barrier = obs_stats.histogram("ps.barrier_wait_s")
         self._serve_cache = EncodedServeCache()
         self._obs_cache_hit = obs_stats.counter("ps.serve.cache_hit")
         self._obs_cache_miss = obs_stats.counter("ps.serve.cache_miss")
+        self._obs_encode = obs_stats.histogram("ps.serve.encode_s")
 
     def _apply(self, worker_id: int, iteration: int, grads):
         t0 = time.perf_counter()
@@ -203,11 +215,13 @@ class ParameterServerService:
                              budget: int):
         """One real encode: (chunk bodies, store version).  The per-chunk
         encodes fan out across the stripe executor."""
+        t0 = time.perf_counter()
         _, params, _, version = self.core.serve_view(request_iteration)
         tensors = to_wire(params, wire_dtype=eff_dtype)
         bodies = encode_parameter_record_groups(
             list(split_tensors(tensors, budget)),
             stripes=self.core.stripes)
+        self._obs_encode.observe(time.perf_counter() - t0)
         return bodies, version
 
     def _serve_key(self, wire_dtype: int) -> tuple:
@@ -356,6 +370,12 @@ class ParameterServerService:
             yield m.PushPullResponse(params=chunk)
         self._obs_serve.observe(time.perf_counter() - t0)
 
+    # RPC (extension, rpc/shm_transport.py): same-host transport
+    # negotiation for the fused data plane
+    def NegotiateShm(self, request: shm_transport.ShmNegotiateRequest,
+                     context) -> shm_transport.ShmNegotiateResponse:
+        return self.shm_server.negotiate(request)
+
     # RPC: barrier poll (reference: src/parameter_server_service.cpp:85-95)
     def CheckSyncStatus(self, request: m.SyncStatusRequest,
                         context) -> m.SyncStatusResponse:
@@ -500,7 +520,8 @@ class ParameterServer:
             max_workers=max(8, 2 * self.config.total_workers + 8))
         bind_service(self._server, m.PARAMETER_SERVER_SERVICE,
                      {**m.PARAMETER_SERVER_METHODS,
-                      **m.PARAMETER_SERVER_STREAM_METHODS}, self.service)
+                      **m.PARAMETER_SERVER_STREAM_METHODS,
+                      **shm_transport.SHM_METHODS}, self.service)
         addr = f"{self.config.bind_address}:{self.config.port}"
         port = self._server.add_insecure_port(addr)
         if port == 0:
@@ -520,6 +541,13 @@ class ParameterServer:
         self._server.wait_for_termination()
 
     def stop(self, grace: float = 1.0) -> None:
+        # handlers parked on the barrier return first (not ready), so the
+        # shm connection threads can be joined and their segments
+        # released, and no gRPC handler holds the exit to the barrier
+        # timeout; then the rings close, which wakes threads parked on a
+        # ring or a doorbell
+        self.core.release_waiters()
+        self.service.shm_server.close()
         if self._server is not None:
             self._server.stop(grace).wait()
         if self._saver is not None:

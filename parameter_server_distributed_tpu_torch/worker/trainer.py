@@ -8,6 +8,9 @@ returns them, one pack on the card), an unpack into ``config.dtype``
 leaves that require grad, autograd of ``model.loss``, and one packed f32
 output with the loss at offset 0.  Gradients are taken with respect to
 the ``config.dtype`` leaves and then cast to f32, as the JAX step does.
+The model is a transformer LM (token batches) or an MLP (``(x, y)``
+batches); the step hands ``model.loss`` the batch as it came, on the
+device.
 
 ``compute_gradients`` downloads that output whole; the wire round's
 ``compute_gradient_buckets`` leaves it on the card and hands back a
@@ -223,11 +226,14 @@ class Trainer:
             flat[off:off + size] = np.asarray(value, np.float32).ravel()
         return torch.from_numpy(flat).to(self.device)
 
-    def _tokens(self, batch) -> torch.Tensor:
-        tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
-        if isinstance(tokens, torch.Tensor):
-            return tokens.to(self.device)
-        return torch.from_numpy(np.asarray(tokens)).to(self.device)
+    def _on_device(self, batch):
+        """The batch on the device: a token tensor, or a tuple such as an
+        MLP's ``(x, y)``, each part a tensor or a numpy array."""
+        if isinstance(batch, (tuple, list)):
+            return tuple(self._on_device(part) for part in batch)
+        if isinstance(batch, torch.Tensor):
+            return batch.to(self.device)
+        return torch.from_numpy(np.asarray(batch)).to(self.device)
 
     def _step(self, params: Mapping, batch) -> torch.Tensor:
         """One gradient step: the flat f32 output (loss at offset 0, then
@@ -237,7 +243,7 @@ class Trainer:
                   .detach().requires_grad_(True)
                   for name, off, size, shape, dtype in self._layout}
         with torch.enable_grad():
-            loss = self.model.loss(leaves, self._tokens(batch))
+            loss = self.model.loss(leaves, self._on_device(batch))
             names = [name for name, *_ in self._layout]
             grads = torch.autograd.grad(loss, [leaves[n] for n in names],
                                         allow_unused=True)

@@ -27,6 +27,7 @@ from parameter_server_distributed_tpu.checkpoint import codec as ref_codec
 from parameter_server_distributed_tpu.checkpoint import manager as ref_manager
 from parameter_server_distributed_tpu.core import optimizer as ref_opt
 from parameter_server_distributed_tpu.core import ps_core as ref_core
+from parameter_server_distributed_tpu_torch import native as port_native
 from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
     import PallasOptimizer
 from parameter_server_distributed_tpu_torch.checkpoint import codec, manager
@@ -53,11 +54,14 @@ TOL = {"host_adam": dict(rtol=1e-6, atol=0),
 @pytest.fixture(autouse=True)
 def reference_numpy():
     native.set_enabled(False)
+    port_native.set_enabled(False)
     try:
         yield
     finally:
-        native.set_enabled(os.environ.get("PSDT_NATIVE", "1").lower()
-                           not in ("0", "false"))
+        default = os.environ.get("PSDT_NATIVE", "1").lower() not in (
+            "0", "false")
+        native.set_enabled(default)
+        port_native.set_enabled(default)
 
 
 def data(seed=0):

@@ -120,17 +120,52 @@ def test_port_imports_and_serves_with_jax_blocked():
             assert result.aggregation_complete
         with tempfile.TemporaryDirectory() as d:
             CheckpointManager(ps, d).save()
+        # one fused round over the shared-memory rings: the port's PS at
+        # its default optimizer, an mnist_mlp step, bf16 on the wire
+        import os
+        os.environ["PSDT_SHM"] = "1"
+        from parameter_server_distributed_tpu_torch import config
+        from parameter_server_distributed_tpu_torch.rpc import data_plane
+        from parameter_server_distributed_tpu_torch.rpc import \
+            messages as msgs
+        from parameter_server_distributed_tpu_torch.server.ps_service \
+            import ParameterServer
+        with tempfile.TemporaryDirectory() as d:
+            server = ParameterServer(config.ParameterServerConfig(
+                bind_address="127.0.0.1", port=0, total_workers=1,
+                checkpoint_dir=d, learning_rate=0.1, device="cpu"))
+            address = f"127.0.0.1:{{server.start()}}"
+            try:
+                model, batches = get_model_and_batches("mnist_mlp", 8,
+                                                       device="cpu")
+                trainer = Trainer(model, device="cpu")
+                store = trainer.init_params(0)
+                server.core.initialize_parameters(store)
+                grads, _ = trainer.compute_gradients(store, next(batches))
+                client = data_plane.PSClient(address)
+                try:
+                    push, fresh = client.push_pull(
+                        0, 0, [msgs.Tensor.from_array(
+                            n, g, wire_dtype=msgs.WIRE_BF16)
+                            for n, g in grads.items()],
+                        pull_wire_dtype=msgs.WIRE_BF16, timeout=60)
+                    assert push.success and fresh is not None
+                    assert client.shm_active
+                finally:
+                    client.close()
+            finally:
+                server.stop()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served, trained and ran a PS session")
+        print("served, trained, ran a PS session and a round over shm")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "served, trained and ran a PS session" in proc.stdout
+    assert "a round over shm" in proc.stdout
 
 
 def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
@@ -170,6 +205,10 @@ def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
         synthetic_tokens(2, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model_and_batches("tiny_lm", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model_and_batches("mnist_mlp", 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model("mnist_mlp").init_params(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_params(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):

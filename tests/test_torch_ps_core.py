@@ -5,9 +5,9 @@ numpy inputs.
 Each scenario of tests/test_ps_core.py runs through both packages' cores
 (in streaming and buffered aggregation, with 1 and 4 stripes) and
 records every PushResult field, every sync status and the params it
-reads; the two records must be equal.  The reference's native C++
-library is switched off through its public switch, so both sides run
-numpy: the fold, the mean, SGD and momentum must match bit for bit
+reads; the two records must be equal.  Both packages' native C++
+libraries are switched off through their public switches, so both sides
+run numpy: the fold, the mean, SGD and momentum must match bit for bit
 (rtol 0); Adam, AdamW and Lion within rtol 1e-6, atol 0.  The
 PallasOptimizer cases of tests/test_pallas_ops.py:125-152 run the
 port's kernels' plain versions (``device="cpu"``) in the port's core
@@ -26,6 +26,7 @@ import torch
 from parameter_server_distributed_tpu import native
 from parameter_server_distributed_tpu.core import optimizer as ref_opt
 from parameter_server_distributed_tpu.core import ps_core as ref_core
+from parameter_server_distributed_tpu_torch import native as port_native
 from parameter_server_distributed_tpu_torch.async_sgd import device_optimizer
 from parameter_server_distributed_tpu_torch.core import optimizer as port_opt
 from parameter_server_distributed_tpu_torch.core import ps_core
@@ -40,14 +41,18 @@ MODES = [dict(aggregation=a, stripes=s)
 
 @pytest.fixture
 def reference_numpy():
-    """The reference's numpy path: its native kernels sum and step in
-    another order, and the port carries no native library."""
+    """Both packages' numpy paths: their native kernels sum and step in
+    another order than numpy (each package's native path is held to the
+    other's in tests/test_torch_native.py)."""
     native.set_enabled(False)
+    port_native.set_enabled(False)
     try:
         yield
     finally:
-        native.set_enabled(os.environ.get("PSDT_NATIVE", "1").lower()
-                           not in ("0", "false"))
+        default = os.environ.get("PSDT_NATIVE", "1").lower() not in (
+            "0", "false")
+        native.set_enabled(default)
+        port_native.set_enabled(default)
 
 
 def store(**kw):

@@ -12,8 +12,12 @@ threads).
   within rtol 1e-4 of a fleet of JAX workers only, on the JAX services,
   the same store and seeds; its store after the last iteration within
   rtol 5e-4, atol 1e-5 (the gradient tolerance of
-  tests/test_pallas_ops.py:40).  Against the port's PS the JAX worker's
-  shared-memory and delta negotiations meet UNIMPLEMENTED and downgrade.
+  tests/test_pallas_ops.py:40).  Against the port's PS the JAX worker
+  negotiates the shared-memory rings, and its delta negotiation meets
+  UNIMPLEMENTED and downgrades.
+- The PS's default optimizer (``pallas_sgd``, its plain version with
+  ``device="cpu"``) applies bit for bit what the JAX PS's default host
+  ``sgd`` applies.
 - A fleet of port workers through the port's services bootstraps the PS
   from its own init, and its loss falls, as tests/test_e2e_training.py
   asserts for the JAX fleet.
@@ -48,6 +52,7 @@ from parameter_server_distributed_tpu.server.ps_service import \
 from parameter_server_distributed_tpu.worker.trainer import \
     Trainer as RefTrainer
 from parameter_server_distributed_tpu.worker.worker import Worker as RefWorker
+from parameter_server_distributed_tpu_torch import native as port_native
 from parameter_server_distributed_tpu_torch import config as port_config
 from parameter_server_distributed_tpu_torch.checkpoint import \
     codec as ckpt_codec
@@ -81,11 +86,14 @@ def hygiene():
     threads = torch.get_num_threads()
     torch.set_num_threads(min(threads, 2))
     native.set_enabled(False)
+    port_native.set_enabled(False)
     try:
         yield
     finally:
-        native.set_enabled(os.environ.get("PSDT_NATIVE", "1").lower()
-                           not in ("0", "false"))
+        default = os.environ.get("PSDT_NATIVE", "1").lower() not in (
+            "0", "false")
+        native.set_enabled(default)
+        port_native.set_enabled(default)
         torch.set_num_threads(threads)
 
 
@@ -212,9 +220,40 @@ def test_mixed_fleet_tracks_jax_fleet(servers, jax_init, tmp_path,
     assert any(not np.array_equal(store[n], jax_init[n]) for n in jax_init)
     if side == "port_services":
         jax_client = workers[1]._ps
-        assert jax_client._shm_ok is False      # NegotiateShm: UNIMPLEMENTED
+        assert jax_client._shm_ok is True       # the port PS's rings
         assert jax_client._delta_ok is False    # delta RPCs: UNIMPLEMENTED
         assert jax_client._fused_ok is True
+
+
+def test_default_ps_optimizer_applies_the_jax_default(tmp_path):
+    """Three synchronous rounds of two workers on one store through the
+    port's PS at its default optimizer and the JAX PS at its default,
+    each with lr 0.05: every store after an apply is bit-identical."""
+    port_ps = ParameterServer(port_config.ParameterServerConfig(
+        total_workers=2, learning_rate=0.05, checkpoint_dir=str(tmp_path),
+        device="cpu"))
+    ref_ps = RefParameterServer(ref_config.ParameterServerConfig(
+        total_workers=2, learning_rate=0.05, checkpoint_dir=str(tmp_path),
+        autosave_period_s=600.0))
+    assert port_ps.config.optimizer == "pallas_sgd"
+    assert ref_ps.config.optimizer == "sgd"
+    rng = np.random.default_rng(4)
+    shapes = {"w": (33, 17), "b": (17,), "s": ()}
+    init = {n: rng.standard_normal(s).astype(np.float32)
+            for n, s in shapes.items()}
+    for ps in (port_ps, ref_ps):
+        ps.core.initialize_parameters(init)
+    for it in range(3):
+        for wid in (0, 1):
+            grads = {n: rng.standard_normal(s).astype(np.float32)
+                     for n, s in shapes.items()}
+            for ps in (port_ps, ref_ps):
+                assert ps.core.receive_gradients(wid, it, grads).success
+        got = to_host(port_ps.core.get_parameters())
+        want = ref_ps.core.get_parameters()
+        for n in shapes:
+            assert np.asarray(got[n]).tobytes() == \
+                np.asarray(want[n], np.float32).tobytes(), (it, n)
 
 
 def test_port_fleet_bootstraps_and_learns(servers, tmp_path):
