@@ -6,7 +6,9 @@ Builds every CUDA kernel of the port from the sources in this checkout
 (one nvcc per source, all at once; the build phase counts each kernel's
 tensor-core instructions in its SASS), holds each kernel against its plain
 PyTorch version on the card and times it beside its bound and a library
-yardstick, then drives the two paths of the port:
+yardstick (the device close's four, csrc/device_apply.cu, byte for byte
+at the llama_350m store's shapes under all five rules), then drives the
+two paths of the port:
 
 - serving: a full-width llama_350m DecodeServer (bf16, 8 slots, max_len
   2048, flash prefill, random weights from a seed) answering 8 requests,
@@ -23,23 +25,35 @@ yardstick, then drives the two paths of the port:
   closes the barrier), the round-1 params held against the plain Adam
   update, one pallas_sgd and one pallas_momentum apply through a core,
   and a CheckpointManager save / load / resume that must be bit-exact;
+- the PS's close on the card in process (ps_device_round): the same two
+  workers for 3 rounds, their pushes encoded for the wire (f32; bf16 and
+  int8; top-k and raw f32) and fed to three cores at 8 stripes, host
+  numpy adam, sharded_adam under PSDT_DEVICE_APPLY=1 and the same with
+  PSDT_ARENA=1, whose stores must be byte-identical after every round,
+  with the device close's launches as its design gives them and no
+  fallback;
 - the same round over the wire: cli.ps_main, cli.coordinator_main and
   two cli.worker_main processes (llama_350m) on localhost, a bootstrap
-  iteration and 3 gradient rounds over the fused PushPullStream data
+  iteration and gradient rounds over the fused PushPullStream data
   plane, which the same-host shared-memory rings carry with the native
   host codec (no process may fall back to gRPC or to the Python codec,
   each worker moves its pushes and pulls through the rings, and no
-  segment is left in /dev/shm), the PS's epoch-1 checkpoint held
-  against the in-process round-1 store, every epoch's checkpoint holding
-  its own iteration and Adam step, and the processes' launch counts from
-  their exit reports;
+  segment is left in /dev/shm), in two legs: the PS's pallas_adam after
+  a host fold (2 rounds; its epoch-1 checkpoint held against ps_round's
+  round-1 store) and --optimizer=sharded_adam under both device-close
+  knobs (3 rounds; its epoch-1 checkpoint byte-identical to
+  ps_device_round's round-1 store, no apply fallback); every epoch's
+  checkpoint holding its own iteration and Adam step, and the
+  processes' launch counts from their exit reports;
 - BASELINE config 1 as the reference runs it: cli.ps_main (1 worker, its
   default optimizer, pallas_sgd), cli.coordinator_main and one
   cli.worker_main (mnist_mlp, batch 256, bf16 on the wire), a bootstrap
-  and 5 gradient rounds, in three legs (shm and the native codec; gRPC;
-  gRPC, the Python codec and the PS's plain host SGD) whose checkpoints
-  must be byte-identical, one fused_sgd launch per kernel apply and a
-  falling loss;
+  and 5 gradient rounds, in four legs (shm and the native codec; gRPC;
+  gRPC, the Python codec and the PS's plain host SGD; shm with
+  --optimizer=sharded_sgd and the device close, the bf16 pushes decoded
+  on the card) whose checkpoints must be byte-identical, one fused_sgd
+  launch per kernel apply, the device close's launches and a falling
+  loss;
 - the 1.34B-parameter MLP (mlp_1b, bf16, batch 2048): 3
   Trainer.compute_gradients -> PallasOptimizer("adam") steps on one
   batch, the loss falling, one Adam launch per apply, the first apply
@@ -86,7 +100,16 @@ PROMPT_LENS = (129, 200, 300, 511, 513, 700, 1000, 1200)
 NEW_TOKENS = 32
 TRAIN = dict(batch=8, seq=1024, steps=5, lr=1e-3)
 ROUND = dict(workers=2, rounds=3)
-WIRE_LIMIT_S = 420.0   # the wire round's wall-clock limit, children included
+# the stripes of the in-process device round and of the device legs
+DEVICE_STRIPES = 8
+# the wire round's legs: the PS's optimizer, its gradient rounds after the
+# bootstrap, and the knobs of its processes (the device leg closes on the
+# card through the flat arena, at DEVICE_STRIPES stripes)
+WIRE_LEGS = {"host": ("pallas_adam", 2, {}),
+             "device": ("sharded_adam", 3,
+                        {"PSDT_DEVICE_APPLY": "1", "PSDT_ARENA": "1",
+                         "PSDT_STRIPES": str(DEVICE_STRIPES)})}
+WIRE_LIMIT_S = 420.0   # a wire leg's wall-clock limit, children included
 # BASELINE config 1 (1 PS, 1 worker, mnist_mlp) at the JAX bench's batch
 # for it; a learning rate at which the loss falls
 CONFIG1 = dict(batch=256, rounds=5, lr=0.05)
@@ -1339,6 +1362,414 @@ def ps_round(torch, np, fa, fu) -> dict:
     return launches, round1, headline
 
 
+# ---- the device close (ops/device_apply.py, csrc/device_apply.cu)
+DEVICE_APPLY_REF = "parameter_server_distributed_tpu/core/device_apply.py:"
+# where each kernel's first reference program is (file:line), the rule
+# the kernels line times for sharded_update (the wire round's), f32
+# operations an element of each rule
+DA_REPLACES = {"fold_segments": "400", "scale_mean": "643",
+               "sharded_update": "212", "topk_scatter": "498"}
+DA_LINE_RULE = "adam"
+DA_FLOPS = {"sgd": 2, "momentum": 4, "adam": 14, "adamw": 17, "lion": 10}
+# ps_device_round: the wire encodings of (worker 0, worker 1) by round;
+# round 1 is the wire round's f32, the others run the decode lanes
+DEVICE_ROUND_WIRE = {1: ("f32", "f32"), 2: ("bf16", "int8"),
+                     3: ("topk", "raw")}
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bytes equal (NaN and -0.0 included)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(a.view(torch.int32), b.view(torch.int32))))
+
+
+def check_device_apply(torch, np, shapes, gen) -> tuple[dict, dict]:
+    """The four kernels of csrc/device_apply.cu against their plain
+    versions on the card, bytes equal, at the llama_350m store's shapes
+    (336,118,784 f32 elements packed into 8 stripe slabs by
+    core.arena.PackingTable): fold_segments for each source (f32, bf16,
+    int8) and lane (set, add), every tensor one row, in one launch;
+    scale_mean over the 8 slabs in one launch; sharded_update for each
+    of the five rules over the 8 slabs in one launch (AdamW's and Lion's
+    decay lanes the table's prefixes); topk_scatter of the embedding
+    (32.8M elements) at the codec's default density, also against the
+    host codec's decode.  Then each timed beside its plain version, its
+    bound (bytes / 3.35 TB/s) and one PyTorch call over the same bytes
+    (``add_``, ``mul_``, ``torch.optim``'s fused step; none for Lion and
+    the top-k scatter).  Returns (max_abs_err, times) by kernel name."""
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import ShardedDeviceOptimizer
+    from parameter_server_distributed_tpu_torch.core import device_apply
+    from parameter_server_distributed_tpu_torch.core.arena import \
+        PackingTable
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.rpc import codec
+
+    table = PackingTable({n: torch.empty(s, device="meta")
+                          for n, s in shapes.items()}, DEVICE_STRIPES, 1)
+    n = table.total_elems
+    stripes = [s for s in range(table.stripes) if table.stripe_sizes[s]]
+
+    def slabs(abs_=False):
+        return {s: (lambda x: x.abs() if abs_ else x)(torch.randn(
+            table.stripe_sizes[s], generator=gen, device="cuda"))
+            for s in stripes}
+
+    def clone(d):
+        return {s: x.clone() for s, x in d.items()}
+
+    def same(a, b) -> bool:
+        return all(bits_equal(torch, a[s], b[s]) for s in a)
+
+    def err(a, b) -> float:
+        return max(float((a[s] - b[s]).abs().max()) for s in a)
+
+    max_err, times, report = {}, {}, {}
+    # fold_segments: all 219 tensors from one flat source into the slabs
+    dst = slabs()
+    src32 = torch.randn(n, generator=gen, device="cuda")
+    sources = {"f32": src32, "bf16": src32.bfloat16(),
+               "int8": torch.randint(-127, 128, (n,), generator=gen,
+                                     device="cuda", dtype=torch.int8)}
+
+    def rows(src, dsts):
+        out, off = [], 0
+        for s in stripes:
+            for name in table.stripe_names[s]:
+                e = table.entries[name]
+                out.append(da.Segment(dsts[s], e.offset, src, off, e.length,
+                                      0.0123))
+                off += e.length
+        return out
+
+    worst, checks = 0.0, {}
+    for kind, src in sources.items():
+        for add in (False, True):
+            got, want = clone(dst), clone(dst)
+            before = da.launches["fold_segments"]
+            da.fold_segments(rows(src, got), add)
+            da.fold_segments_reference(rows(src, want), add)
+            torch.cuda.synchronize()
+            checks[f"{kind}/{'add' if add else 'set'}"] = same(got, want)
+            worst = max(worst, err(got, want))
+            if da.launches["fold_segments"] != before + 1:
+                fail("fold_segments took more than one launch for the store")
+    del got, want
+    max_err["fold_segments"] = worst
+    got, want = clone(dst), clone(dst)
+    k_rows, p_rows = rows(src32, got), rows(src32, want)
+    flat = torch.randn(n, generator=gen, device="cuda")
+    ms = cuda_ms(torch, lambda: da.fold_segments(k_rows, True), iters=10)
+    plain = cuda_ms(torch, lambda: da.fold_segments_reference(p_rows, True),
+                    iters=3)
+    library = cuda_ms(torch, lambda: flat.add_(src32), iters=10)
+    b_ms, b_by = bound(n, 12 * n, "float32")
+    times["fold_segments"] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                                  bound_ms=b_ms, bound_by=b_by)
+    report["fold_segments"] = {"bits_equal": checks, "rows": len(k_rows),
+                               "library": "Tensor.add_ (one flat tensor)",
+                               **times["fold_segments"]}
+    del got, want, k_rows, p_rows, sources
+    # scale_mean: the 8 slabs in one launch
+    inv = device_apply.inverse_count(2)
+    got, want = clone(dst), clone(dst)
+    da.scale_mean([(got[s], inv) for s in stripes])
+    da.scale_mean_reference([(want[s], inv) for s in stripes])
+    torch.cuda.synchronize()
+    ok = same(got, want)
+    max_err["scale_mean"] = err(got, want)
+    ms = cuda_ms(torch, lambda: da.scale_mean([(got[s], inv)
+                                               for s in stripes]), iters=10)
+    plain = cuda_ms(torch, lambda: da.scale_mean_reference(
+        [(want[s], inv) for s in stripes]), iters=3)
+    library = cuda_ms(torch, lambda: flat.mul_(inv), iters=10)
+    b_ms, b_by = bound(n, 8 * n, "float32")
+    times["scale_mean"] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                               bound_ms=b_ms, bound_by=b_by)
+    report["scale_mean"] = {"bits_equal": {"scale": ok},
+                            "library": "Tensor.mul_ (one flat tensor)",
+                            **times["scale_mean"]}
+    checks["scale"] = ok
+    del got, want, dst, src32
+    torch.cuda.empty_cache()
+    # sharded_update: each rule over the 8 slabs in one launch
+    worst, by_rule = 0.0, {}
+    for rule in da.RULES:
+        opt = ShardedDeviceOptimizer(rule, 1e-3, device="cuda")
+        opt.step = 3
+        scalars = opt._scalars()
+        p, g = slabs(), slabs()
+        nslots = da.RULE_SLOTS[rule]
+        slots = [slabs(abs_=(i == 1)) for i in range(nslots)]
+        decay = {s: table.decay_len(s) if rule in ("adamw", "lion") else 0
+                 for s in stripes}
+
+        def upd_rows(sl, outs):
+            return [da.UpdateRow(p[s], g[s], outs[s],
+                                 *[x[s] for x in sl], *[None] * (2 - nslots),
+                                 decay[s], False) for s in stripes]
+
+        k_slots, r_slots = [clone(x) for x in slots], [clone(x) for x in slots]
+        k_out = {s: torch.empty_like(p[s]) for s in stripes}
+        r_out = {s: torch.empty_like(p[s]) for s in stripes}
+        before = da.launches["sharded_update"]
+        da.sharded_update(rule, upd_rows(k_slots, k_out), scalars)
+        if da.launches["sharded_update"] != before + 1:
+            fail(f"sharded_update {rule} took more than one launch")
+        for row in upd_rows(r_slots, r_out):
+            da.sharded_update_reference(rule, row, scalars)
+        torch.cuda.synchronize()
+        pairs = [(k_out, r_out)] + list(zip(k_slots, r_slots))
+        checks[f"update/{rule}"] = all(same(a, b) for a, b in pairs)
+        worst = max([worst] + [err(a, b) for a, b in pairs])
+        del r_slots, r_out
+        k_rows = upd_rows(k_slots, k_out)
+        ms = cuda_ms(torch, lambda: da.sharded_update(rule, k_rows, scalars),
+                     iters=10)
+        p_rows = upd_rows([clone(x) for x in slots], clone(k_out))
+        plain = cuda_ms(torch, lambda: [da.sharded_update_reference(
+            rule, r, scalars) for r in p_rows], iters=2, warmup=1)
+        del p_rows
+        torch.cuda.empty_cache()
+        library = None
+        if rule != "lion":
+            param = torch.nn.Parameter(torch.randn(n, generator=gen,
+                                                   device="cuda"))
+            param.grad = torch.randn(n, generator=gen, device="cuda")
+            lib = (torch.optim.SGD([param], lr=1e-3, fused=True,
+                                   momentum=0.9 if rule == "momentum"
+                                   else 0.0)
+                   if rule in ("sgd", "momentum") else
+                   torch.optim.Adam([param], lr=1e-3, fused=True)
+                   if rule == "adam" else
+                   torch.optim.AdamW([param], lr=1e-3, fused=True))
+            library = cuda_ms(torch, lib.step, iters=10)
+            del lib, param
+        b_ms, b_by = bound(DA_FLOPS[rule] * n, da.UPDATE_BYTES[rule] * n,
+                           "float32")
+        by_rule[rule] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                             bound_ms=b_ms, bound_by=b_by)
+        del p, g, slots, k_slots, k_out, k_rows
+        torch.cuda.empty_cache()
+    max_err["sharded_update"] = worst
+    times["sharded_update"] = by_rule[DA_LINE_RULE]
+    report["sharded_update"] = {"by_rule": by_rule,
+                                "library": "torch.optim SGD / SGD momentum "
+                                           "/ Adam / AdamW (fused=True); "
+                                           "none for Lion"}
+    # topk_scatter: the embedding at the codec's default density
+    total = max(math.prod(s) for s in shapes.values())
+    x = np.random.default_rng(9).standard_normal(total).astype(np.float32)
+    k = codec.topk_k(total, codec.TOPK_DEFAULT_DENSITY)
+    buf = bytearray(codec.payload_nbytes(codec.WIRE_TOPK, total, k))
+    codec.PythonCodec().pack_into(codec.WIRE_TOPK, x, buf, k)
+    host = codec.PythonCodec().unpack(codec.WIRE_TOPK, bytes(buf), total)
+    idx = device_apply.upload(np.frombuffer(bytes(buf), "<u4", k, 4), "cuda")
+    vals = device_apply.upload(np.frombuffer(bytes(buf), "<u2", k,
+                                             4 + 4 * k),
+                               "cuda").view(torch.bfloat16)
+    got = da.topk_scatter(idx, vals, total)
+    want = da.topk_scatter_reference(idx, vals, total)
+    torch.cuda.synchronize()
+    checks["topk"] = (bits_equal(torch, got, want)
+                      and got.cpu().numpy().tobytes() == host.tobytes())
+    max_err["topk_scatter"] = float((got - want).abs().max())
+    ms = cuda_ms(torch, lambda: da.topk_scatter(idx, vals, total), iters=10)
+    plain = cuda_ms(torch, lambda: da.topk_scatter_reference(idx, vals,
+                                                             total), iters=3)
+    b_ms, b_by = bound(total, 4 * total + 6 * k, "float32")
+    times["topk_scatter"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                 bound_ms=b_ms, bound_by=b_by)
+    report["topk_scatter"] = {"elements": total, "kept": k,
+                              **times["topk_scatter"]}
+    emit({"phase": "device_apply_kernels", "elements": n,
+          "tensors": len(shapes), "stripes": len(stripes),
+          "bits_equal": checks, "max_abs_err": max_err, **report})
+    if not all(checks.values()):
+        fail(f"a device-close kernel differs from its plain version: "
+             f"{checks}")
+    torch.cuda.empty_cache()
+    return max_err, times
+
+
+def ps_device_round(torch, np, fa) -> tuple[dict, dict, dict]:
+    """The PS's device close in process: two full-width llama_350m
+    Trainer workers on the card (the flash kernels) and three cores at 8
+    stripes fed the same pushes for 3 rounds: host numpy ``adam``
+    (native off), ``sharded_adam`` under PSDT_DEVICE_APPLY=1 (per-tensor
+    device close) and the same under PSDT_ARENA=1 (the flat close).
+    Each push is encoded for the wire (by round: f32 and f32; bf16 and
+    int8; top-k and raw f32) and decoded by the host core's codec and
+    onto the card for the device cores.  The three stores must be
+    byte-identical after every round.  Reports each core's close time
+    (its ``ps.barrier_close_s`` observation), the kernels' launches
+    (equal to the counts the design gives), the readback time, the peak
+    card memory and both fallback counters (0).  Returns (the launches,
+    the round-1 store as host numpy and the round-1 losses, which the
+    wire round's device leg is held to)."""
+    from parameter_server_distributed_tpu_torch import native
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import ShardedDeviceOptimizer
+    from parameter_server_distributed_tpu_torch.core.optimizer import \
+        make_optimizer
+    from parameter_server_distributed_tpu_torch.core.ps_core import \
+        ParameterServerCore
+    from parameter_server_distributed_tpu_torch.core.stripes import \
+        partition_names
+    from parameter_server_distributed_tpu_torch.core.tensor import (
+        from_wire, to_host, to_wire)
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model_and_batches
+    from parameter_server_distributed_tpu_torch.obs import stats
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.rpc import codec
+    from parameter_server_distributed_tpu_torch.rpc.data_plane import \
+        decode_gradients
+    from parameter_server_distributed_tpu_torch.rpc.wire import ArrayPayload
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
+
+    b, lr, workers = TRAIN["batch"], TRAIN["lr"], ROUND["workers"]
+    rounds = len(DEVICE_ROUND_WIRE)
+    native.set_enabled(False)
+    env = {k: os.environ.get(k) for k in ("PSDT_DEVICE_APPLY", "PSDT_ARENA")}
+    try:
+        os.environ["PSDT_DEVICE_APPLY"] = "1"
+        cores = {}
+        for name, opt, arena in (("host", "adam", "0"),
+                                 ("sharded", "sharded_adam", "0"),
+                                 ("arena", "sharded_adam", "1")):
+            os.environ["PSDT_ARENA"] = arena
+            cores[name] = ParameterServerCore(
+                total_workers=workers, stripes=DEVICE_STRIPES,
+                optimizer=make_optimizer(opt, lr))
+        for name in ("sharded", "arena"):
+            opt = cores[name]._optimizer
+            if not (isinstance(opt, ShardedDeviceOptimizer)
+                    and opt.device.type == "cuda"
+                    and cores[name].device_fold() is not None):
+                fail(f"the {name} core does not close on the card")
+        if cores["arena"]._arena is None or cores["sharded"]._arena:
+            fail("PSDT_ARENA did not arm the arena core alone")
+        sides = [get_model_and_batches("llama_350m", b, seed=wid,
+                                       dtype="bf16")
+                 for wid in range(workers)]
+        trainers = [Trainer(m) for m, _ in sides]
+        batches = [next(stream) for _, stream in sides]
+        init = trainers[0].init_params(0)
+        for core in cores.values():
+            core.initialize_parameters(init)
+        names = list(init)
+        groups = len(partition_names(names, DEVICE_STRIPES))
+        counters = ("ps.apply.device_fallback", "ps.apply.arena_fallback")
+        fb_before = {c: stats.counter(c).value for c in counters}
+        close_hist = stats.histogram("ps.barrier_close_s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        da.reset_launches()
+        launches = {name: dict.fromkeys(da.launches, 0) for name in cores}
+        expected = {name: dict.fromkeys(da.launches, 0) for name in cores}
+        closes = {name: [] for name in cores}
+        identical, losses, round1 = [], [], None
+        for it in range(1, rounds + 1):
+            for wid in range(workers):
+                _, params, _ = cores["host"].serve_parameters(it)
+                grads, loss = trainers[wid].compute_gradients(params,
+                                                              batches[wid])
+                losses.append(loss)
+                wire = codec.WIRE_DTYPE_NAMES[DEVICE_ROUND_WIRE[it][wid]]
+                msgs = to_wire(grads, wire_dtype=wire)
+                for t in msgs:   # encode once: the bytes both decodes read
+                    if isinstance(t.packed, ArrayPayload):
+                        t.packed = t.packed.tobytes()
+                del grads
+                decodes = {codec.WIRE_BF16: len(names),
+                           codec.WIRE_INT8: len(names)}.get(wire, 0)
+                kept = (sum(1 for t in msgs if np.frombuffer(
+                    t.packed, "<u4", 1)[0]) if wire == codec.WIRE_TOPK
+                    else 0)
+                for name, core in cores.items():
+                    before = dict(da.launches)
+                    hist_before = close_hist.total
+                    t0 = time.perf_counter()
+                    g = (from_wire(msgs) if name == "host" else
+                         decode_gradients(msgs, core.device_fold()))
+                    result = core.receive_gradients(wid, it, g)
+                    del g
+                    torch.cuda.synchronize()
+                    if wid == workers - 1:
+                        closes[name].append({
+                            "push_s": time.perf_counter() - t0,
+                            "close_s": close_hist.total - hist_before})
+                    for k in da.launches:
+                        launches[name][k] += da.launches[k] - before[k]
+                    if not result.success or result.aggregation_complete \
+                            != (wid == workers - 1):
+                        fail(f"{name} core, round {it} worker {wid}: "
+                             f"{result.message}")
+                    if name == "host":
+                        continue
+                    e = expected[name]
+                    e["fold_segments"] += decodes
+                    e["topk_scatter"] += kept
+                    e["fold_segments"] += (len(names) if name == "sharded"
+                                           else groups)
+                del msgs
+            for name in ("sharded", "arena"):
+                # per tensor: one scale a stripe group; flat: one for
+                # every stripe slab
+                expected[name]["scale_mean"] += (groups if name == "sharded"
+                                                 else 1)
+                expected[name]["sharded_update"] += groups
+            stores = {name: to_host(core.get_parameters())
+                      for name, core in cores.items()}
+            same = {name: all(stores[name][n].tobytes()
+                              == stores["host"][n].tobytes() for n in names)
+                    and list(stores[name]) == names
+                    for name in ("sharded", "arena")}
+            identical.append(same)
+            if it == 1:
+                round1 = {n: np.array(stores["arena"][n]) for n in names}
+            del stores
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        fallbacks = {c: stats.counter(c).value - fb_before[c]
+                     for c in counters}
+        arena_store = type(cores["arena"]._params).__name__
+    finally:
+        native.set_enabled(os.environ.get("PSDT_NATIVE", "1").lower()
+                           not in ("0", "false"))
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    flash = dict(fa.launches)
+    emit({"phase": "ps_device_round", "model": "llama_350m",
+          "workers": workers, "rounds": rounds, "stripes": DEVICE_STRIPES,
+          "optimizer": "adam (host numpy) / sharded_adam / sharded_adam "
+                       "+ arena", "lr": lr, "wire": DEVICE_ROUND_WIRE,
+          "losses": losses, "stores_identical": identical,
+          "closes": closes, "launches": launches,
+          "expected_launches": expected, "flash_launches": flash,
+          "readback_s": stats.histogram("ps.apply.readback_s").summary(),
+          "arena_store": arena_store, "peak_mem_gb": peak,
+          "fallbacks": fallbacks})
+    if not all(all(s.values()) for s in identical):
+        fail(f"the device cores' stores differ from the host core's: "
+             f"{identical}")
+    if launches != expected:
+        fail(f"ps_device_round launches {launches} != {expected}")
+    if any(fallbacks.values()) or arena_store != "ArenaStore":
+        fail(f"ps_device_round fell back: {fallbacks}, {arena_store}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ps_device_round losses not finite: {losses}")
+    del cores, trainers
+    torch.cuda.empty_cache()
+    total = {k: sum(launches[name][k] for name in launches)
+             for k in da.launches}
+    return {**flash, **total}, round1, {"round1_losses": losses[:workers]}
+
+
 def _wait_line(path: str, pattern: str, proc, deadline: float) -> str:
     """The first match of ``pattern`` in a child's log, waiting until
     ``deadline``; fails if the child exits first or time runs out."""
@@ -1356,20 +1787,26 @@ def _wait_line(path: str, pattern: str, proc, deadline: float) -> str:
          f"(exit {proc.poll()}): {tail}")
 
 
-def ps_wire_round(np, round1, in_process: dict | None) -> dict:
+def ps_wire_round(np, round1, in_process: dict | None,
+                  leg: str = "host") -> dict:
     """The parameter-server round over the wire (BASELINE config 1 as its
-    users run it): cli.ps_main (2 workers, pallas_adam at lr 1e-3, a
-    checkpoint every iteration into build/), cli.coordinator_main
-    and two cli.worker_main processes (full-width llama_350m, bf16, batch
-    8, worker i on get_model_and_batches("llama_350m", 8, seed=i) as in
-    ps_round), all on the card on free localhost ports.  Iteration 0 is
-    the bootstrap (each worker pushes init_params(0); the PS adopts their
-    mean, the init), then three gradient rounds, each one fused
+    users run it): cli.ps_main (2 workers, lr 1e-3, a checkpoint every
+    iteration into build/), cli.coordinator_main and two cli.worker_main
+    processes (full-width llama_350m, bf16, batch 8, worker i on
+    get_model_and_batches("llama_350m", 8, seed=i) as in ps_round), all
+    on the card on free localhost ports.  Iteration 0 is the bootstrap
+    (each worker pushes init_params(0); the PS adopts their mean, the
+    init), then the leg's gradient rounds (WIRE_LEGS), each one fused
     PushPullStream round per worker with bucketed gradient downloads.
+    Leg "host": the PS applies pallas_adam on the card after a numpy fold
+    and scale, 2 rounds.  Leg "device": --optimizer=sharded_adam under
+    PSDT_DEVICE_APPLY=1 PSDT_ARENA=1, the whole close on the card, 3
+    rounds.
 
     The epoch-1 checkpoint (the store after the first gradient round) is
-    held against ``round1`` (ps_round's, at rtol 1e-5, atol 1e-7) and the
-    workers' round-1 losses against ps_round's (rtol 1e-6), unless
+    held against ``round1`` (host leg: ps_round's, at rtol 1e-5, atol
+    1e-7; device leg: ps_device_round's, byte for byte) and the workers'
+    round-1 losses against the in-process ones (rtol 1e-6), unless
     ``round1`` and ``in_process`` are None; every epoch's file must
     hold its own iteration and, in its optimizer sidecar, that
     iteration's Adam step (the PS takes each at the apply that advanced
@@ -1385,14 +1822,33 @@ def ps_wire_round(np, round1, in_process: dict | None) -> dict:
     import tempfile
 
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="ps_wire_round-",
+    tmp = tempfile.mkdtemp(prefix=f"ps_wire_round-{leg}-",
                            dir=os.path.join(HERE, "build"))
-    env = child_env(tmp, PSDT_FLASH_ATTENTION="1")
+    env = child_env(tmp, PSDT_FLASH_ATTENTION="1", **WIRE_LEGS[leg][2])
     try:
         return _wire_round_in(tmp, _spawner(tmp, env), np, round1,
-                              in_process)
+                              in_process, leg)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def push_stripe_pairs(np, shapes: dict, stripes: int) -> int:
+    """The (chunk, stripe) pairs of one f32 push of a store of ``shapes``:
+    a worker pushes its gradients in the trainer's layout order (sorted
+    by name), cut into chunks by rpc/data_plane.split_tensors at the
+    stream chunk size (the children inherit this process's), and a flat
+    fold launches ``fold_segments`` once per pair and lane."""
+    from types import SimpleNamespace
+
+    from parameter_server_distributed_tpu_torch.core.stripes import \
+        stripe_of
+    from parameter_server_distributed_tpu_torch.rpc.data_plane import (
+        split_tensors, stream_chunk_bytes)
+
+    tensors = [SimpleNamespace(name=n, packed=b"", data=np.broadcast_to(
+        np.float32(0), tuple(shapes[n]))) for n in sorted(shapes)]
+    return sum(len({stripe_of(t.name, stripes) for t in chunk})
+               for chunk in split_tensors(tensors, stream_chunk_bytes()))
 
 
 def child_env(tmp: str, **knobs) -> dict:
@@ -1400,7 +1856,8 @@ def child_env(tmp: str, **knobs) -> dict:
     transport and codec knobs at their defaults unless ``knobs`` sets
     them, and per-iteration metrics into ``tmp``."""
     env = {k: v for k, v in os.environ.items()
-           if k not in ("PSDT_SHM", "PSDT_NATIVE", "PSDT_SHM_RING_BYTES")}
+           if k not in ("PSDT_SHM", "PSDT_NATIVE", "PSDT_SHM_RING_BYTES",
+                        "PSDT_DEVICE_APPLY", "PSDT_ARENA", "PSDT_STRIPES")}
     # a fatal signal in a child prints its Python traceback into its log
     return {**env, "PYTHONPATH": HERE, "PYTHONFAULTHANDLER": "1", **knobs,
             "PSDT_METRICS_FILE": os.path.join(tmp, "metrics-%d.jsonl")}
@@ -1496,21 +1953,27 @@ def transport_faults(reports: dict, shm: bool, native: bool) -> list[str]:
     return bad
 
 
-def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
+def _wire_round_in(tmp: str, spawn, np, round1, in_process,
+                   leg: str) -> dict:
     """ps_wire_round's body, its children and files under ``tmp``."""
     from parameter_server_distributed_tpu_torch.checkpoint.manager import \
         CheckpointManager
     from parameter_server_distributed_tpu_torch.core.ps_core import \
         ParameterServerCore
+    from parameter_server_distributed_tpu_torch.core.stripes import \
+        partition_names
     from parameter_server_distributed_tpu_torch.models.transformer import \
         llama_350m
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
     from parameter_server_distributed_tpu_torch.ops import fused_update as fu
 
     b, s, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
-    workers, rounds = ROUND["workers"], ROUND["rounds"]
+    workers = ROUND["workers"]
+    optimizer, rounds, _ = WIRE_LEGS[leg]
+    device = leg == "device"
     ckpt_dir = os.path.join(tmp, "ck")
     wall, ps_pid = _run_round(
-        spawn, [str(workers), "1", "--optimizer=pallas_adam", f"--lr={lr}",
+        spawn, [str(workers), "1", f"--optimizer={optimizer}", f"--lr={lr}",
                 f"--ckpt-dir={ckpt_dir}", f"--report={tmp}/ps.json"],
         [[str(wid), str(rounds + 1), "--model=llama_350m", f"--batch={b}",
           "--dtype=bf16", f"--report={tmp}/worker-{wid}.json"]
@@ -1540,7 +2003,9 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
         ok = ok and sorted(got) == sorted(round1)
         for n, ref in round1.items():
             worst = max(worst, float(np.max(np.abs(got[n] - ref))))
-            ok = ok and bool(np.allclose(got[n], ref, rtol=1e-5, atol=1e-7))
+            ok = ok and (got[n].tobytes() == ref.tobytes() if device else
+                         bool(np.allclose(got[n], ref, rtol=1e-5,
+                                          atol=1e-7)))
     del core, got
     # (epoch, iteration) from each file's header (checkpoint/codec.py:
     # two little-endian int32 first) and the Adam step of its sidecar
@@ -1552,7 +2017,9 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
         step = 0
         if os.path.exists(path + ".opt.npz"):
             with np.load(path + ".opt.npz") as npz:
-                step = int(npz["__scalar__/step"][0])
+                # a 1-element array (PallasOptimizer) or a 0-d scalar
+                # (the host optimizers' layout, ShardedDeviceOptimizer's)
+                step = int(np.asarray(npz["__scalar__/step"]).reshape(-1)[0])
         held.append([*header, step])
     epochs_ok = held == [[e, e, e] for e in range(rounds + 1)]
 
@@ -1567,8 +2034,25 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
                 "flash_bwd_dq": layers * workers * rounds,
                 "flash_bwd_dkv": layers * workers * rounds,
                 "fused_sgd": 0, "fused_momentum": 0,
-                "fused_adam": update_launches(fu, model.param_shapes())
-                * rounds}
+                "fused_adam": 0 if device else
+                update_launches(fu, model.param_shapes()) * rounds,
+                **dict.fromkeys(da.launches, 0)}
+    fold_pairs = None
+    if device:
+        # the bootstrap folds per tensor (a copy and an add each) and
+        # scales per stripe group; each flat round scales every stripe
+        # slab in one launch and updates once a stripe; the first flat
+        # close packs the bootstrap store once a stripe.  A flat fold is
+        # one launch per (chunk, stripe, lane): each worker's push
+        # touches the same pairs, the first to reach a pair seeds it on
+        # the set lane and the other adds on the add lane
+        shapes = model.param_shapes()
+        groups = len(partition_names(shapes, DEVICE_STRIPES))
+        fold_pairs = push_stripe_pairs(np, shapes, DEVICE_STRIPES)
+        expected.update(
+            fold_segments=2 * len(shapes) + groups
+            + workers * fold_pairs * rounds,
+            scale_mean=groups + rounds, sharded_update=groups * rounds)
     by_process = {role: {k: v for k, v in r["launches"].items() if v}
                   for role, r in reports.items()}
 
@@ -1596,11 +2080,25 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
         f"{role} moved {n} ring bytes, under {ring_floor}"
         for role, n in ring_bytes.items()
         if role != "ps" and n < ring_floor]
-    out = {"phase": "ps_wire_round", "model": "llama_350m",
+    ps_counters = reports["ps"]["counters"]
+    device_faults = [] if not device else [
+        f"PS {k} {ps_counters.get(k)}" for k, want in (
+            ("ps.apply.device_fallback", 0), ("ps.apply.arena_fallback", 0),
+            ("ps.apply.arena", rounds)) if ps_counters.get(k) != want]
+    if device and reports["ps"].get("optimizer") != "ShardedDeviceOptimizer":
+        device_faults.append(f"PS optimizer {reports['ps'].get('optimizer')}")
+    out = {"phase": "ps_wire_round", "leg": leg, "model": "llama_350m",
            "dtype": "bfloat16", "processes": ["ps_main", "coordinator_main"]
            + [f"worker_main {w}" for w in range(workers)],
            "workers": workers, "rounds": rounds, "batch": b, "seq": s,
-           "optimizer": "pallas_adam", "lr": lr, "wire": "f32",
+           "optimizer": optimizer, "lr": lr, "wire": "f32",
+           "ps_optimizer_class": reports["ps"].get("optimizer"),
+           "ps_apply_counters": {k: ps_counters.get(k) for k in (
+               "ps.apply.device", "ps.apply.arena",
+               "ps.apply.device_fallback", "ps.apply.arena_fallback")},
+           "ps_readback_s": reports["ps"]["histograms"].get(
+               "ps.apply.readback_s"),
+           "fold_push_stripe_pairs": fold_pairs,
            "transport": "shm", "ring_bytes": ring_bytes,
            # the rings' bytes over the fused rounds' whole time (barrier
            # wait, encode, fold and apply included): a floor on the rate
@@ -1645,6 +2143,8 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
     if faults:
         fail(f"ps_wire_round did not ride the rings with the native codec: "
              f"{faults}")
+    if device_faults:
+        fail(f"ps_wire_round's device close: {device_faults}")
     if left:
         fail(f"the PS left shared-memory segments behind: {left}")
     if not ok:
@@ -1658,7 +2158,8 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process) -> dict:
     if any(v for k, v in reports["ps"]["launches"].items()
            if k.startswith("flash")) or any(
             reports[f"worker {w}"]["launches"][k] for w in range(workers)
-            for k in ("fused_sgd", "fused_momentum", "fused_adam")):
+            for k in ("fused_sgd", "fused_momentum", "fused_adam",
+                      *da.launches)):
         fail(f"a kernel ran in the wrong process: {by_process}")
     if any(len(h) != rounds for h in losses) or not all(
             math.isfinite(x) for h in losses for x in h):
@@ -1675,22 +2176,30 @@ def config1_wire(np) -> dict:
     no --optimizer, so its default pallas_sgd, lr CONFIG1["lr"], a
     checkpoint every iteration), cli.coordinator_main and one
     cli.worker_main (mnist_mlp, batch 256, bf16 on the wire), all on the
-    card; a bootstrap and 5 gradient rounds.  Three legs: (a) the
+    card; a bootstrap and 5 gradient rounds.  Four legs: (a) the
     defaults, the shared-memory rings and the native codec; (b)
     PSDT_SHM=0, gRPC; (c) PSDT_SHM=0 PSDT_NATIVE=0 and --optimizer=sgd,
-    gRPC, the Python codec and the PS's plain host SGD in numpy.  Every
-    epoch's checkpoint must be byte-identical across the legs, which
-    holds the fused_sgd kernel of legs (a) and (b) to the plain rule at
-    config 1's shapes; each leg's processes must have used the transport
-    and codec it asked for, the loss must fall and the PS of legs (a)
-    and (b) must count one fused_sgd launch per apply (as
-    ops.fused_update.plan gives), that of leg (c) none.  Returns leg
-    (a)'s launch counts, summed over its processes."""
+    gRPC, the Python codec and the PS's plain host SGD in numpy; (d) the
+    rings and the native codec with --optimizer=sharded_sgd under
+    PSDT_DEVICE_APPLY=1 PSDT_ARENA=1: the bf16 pushes decode on the card
+    (fold_segments' bf16 lane) and the whole close runs there, flat.
+    Every epoch's checkpoint must be byte-identical across the legs,
+    which holds the fused_sgd kernel of legs (a) and (b) and the device
+    close of leg (d) to the plain rule at config 1's shapes; each leg's
+    processes must have used the transport and codec it asked for, the
+    loss must fall, the PS of legs (a) and (b) must count one fused_sgd
+    launch per apply (as ops.fused_update.plan gives), that of leg (c)
+    none, that of leg (d) the device close's launches and no fallback.
+    Returns the launch counts of legs (a) and (d), summed over their
+    processes."""
     import hashlib
     import shutil
     import tempfile
 
+    from parameter_server_distributed_tpu_torch.core.stripes import \
+        partition_names
     from parameter_server_distributed_tpu_torch.models.mlp import mnist_mlp
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
     from parameter_server_distributed_tpu_torch.ops import fused_update as fu
 
     b, rounds, lr = CONFIG1["batch"], CONFIG1["rounds"], CONFIG1["lr"]
@@ -1698,18 +2207,38 @@ def config1_wire(np) -> dict:
     legs = {"shm_native": ({}, []),
             "grpc_native": ({"PSDT_SHM": "0"}, []),
             "grpc_python_host_sgd": ({"PSDT_SHM": "0", "PSDT_NATIVE": "0"},
-                                     ["--optimizer=sgd"])}
-    per_apply = update_launches(fu, mnist_mlp().param_shapes())
+                                     ["--optimizer=sgd"]),
+            "shm_native_device_sgd": ({"PSDT_DEVICE_APPLY": "1",
+                                       "PSDT_ARENA": "1",
+                                       "PSDT_STRIPES": str(DEVICE_STRIPES)},
+                                      ["--optimizer=sharded_sgd"])}
+    shapes = mnist_mlp().param_shapes()
+    per_apply = update_launches(fu, shapes)
+    # the device leg's PS: the bootstrap push (f32, before the worker has
+    # seen a packed pull) folds per tensor (a copy each) and scales per
+    # stripe group; each round decodes each bf16 tensor (fold_segments'
+    # bf16 lane), folds its one chunk into each stripe slab, scales
+    # every slab in one launch and updates once a stripe; the first flat
+    # close packs the bootstrap store once a stripe
+    groups = len(partition_names(shapes, DEVICE_STRIPES))
+    device_launches = {
+        "fold_segments": len(shapes) + rounds * (len(shapes) + groups)
+        + groups,
+        "scale_mean": groups + rounds,
+        "sharded_update": rounds * groups, "topk_scatter": 0}
     out = {"phase": "config1_wire", "model": "mnist_mlp", "batch": b,
            "rounds": rounds, "optimizer": "pallas_sgd (ps_main default); "
            "host sgd in the last leg", "lr": lr, "wire": "bf16", "legs": {}}
     ckpts, faults, launches_a = {}, [], None
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     for leg, (extra, opt_args) in legs.items():
+        device = "PSDT_DEVICE_APPLY" in extra
         expected_ps = {"flash_fwd": 0, "flash_bwd_dq": 0,
                        "flash_bwd_dkv": 0, "fused_momentum": 0,
                        "fused_adam": 0, "fused_sgd": 0 if opt_args
-                       else per_apply * rounds}
+                       else per_apply * rounds,
+                       **(device_launches if device
+                          else dict.fromkeys(da.launches, 0))}
         tmp = tempfile.mkdtemp(prefix=f"config1-{leg}-",
                                dir=os.path.join(HERE, "build"))
         try:
@@ -1738,7 +2267,7 @@ def config1_wire(np) -> dict:
             left = shm_left(ps_pid)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        shm = leg == "shm_native"
+        shm = leg.startswith("shm_")
         leg_faults = transport_faults(reports, shm=shm,
                                       native=not extra.get("PSDT_NATIVE"))
         ring = reports["worker 0"]["counters"].get("rpc.shm.bytes", 0)
@@ -1752,6 +2281,15 @@ def config1_wire(np) -> dict:
         if any(reports["worker 0"]["launches"].values()):
             leg_faults.append(f"worker launches "
                               f"{reports['worker 0']['launches']}")
+        if device:
+            counters = reports["ps"]["counters"]
+            leg_faults += [f"PS {k} {counters.get(k)}" for k, want in (
+                ("ps.apply.device_fallback", 0),
+                ("ps.apply.arena_fallback", 0), ("ps.apply.arena", rounds))
+                if counters.get(k) != want]
+            if reports["ps"].get("optimizer") != "ShardedDeviceOptimizer":
+                leg_faults.append(f"PS optimizer "
+                                  f"{reports['ps'].get('optimizer')}")
         losses = [r["loss"] for r in records if r["step"] >= 1]
         if len(losses) != rounds or not all(
                 math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -1779,8 +2317,8 @@ def config1_wire(np) -> dict:
                          for k, r in reports.items()},
             "checkpoint_sha256": [hashlib.sha256(c).hexdigest()[:16]
                                   for c in ckpts[leg]]}
-        if leg == "shm_native":
-            launches_a = {}
+        if shm:
+            launches_a = launches_a or {}
             for r in reports.values():
                 for n, v in r["launches"].items():
                     launches_a[n] = launches_a.get(n, 0) + v
@@ -1995,6 +2533,8 @@ def main() -> int:
     serve_t = time_flash_fwd(torch, F, fa, gen)
     train_t = time_flash_train(torch, F, fa, gen)
     update_t = time_updates(torch, fu, shapes, gen)
+    da_err, da_t = check_device_apply(torch, np, shapes, gen)
+    max_err.update(da_err)
     emit({"phase": "kernels_checked", "elapsed_s":
           time.perf_counter() - t_start})
 
@@ -2010,8 +2550,16 @@ def main() -> int:
     round_launches, round1, in_process = ps_round(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "ps_rounded", "elapsed_s": time.perf_counter() - t_start})
-    wire_launches = ps_wire_round(np, round1, in_process)
+    device_launches, device_round1, device_in = ps_device_round(torch, np,
+                                                                fa)
+    emit({"phase": "ps_device_rounded",
+          "elapsed_s": time.perf_counter() - t_start})
+    wire_launches = ps_wire_round(np, round1, in_process, "host")
     del round1
+    device_wire = ps_wire_round(np, device_round1, device_in, "device")
+    del device_round1
+    for name, n in device_wire.items():
+        wire_launches[name] = wire_launches.get(name, 0) + n
     emit({"phase": "ps_wire_rounded",
           "elapsed_s": time.perf_counter() - t_start})
     config1_launches = config1_wire(np)
@@ -2021,36 +2569,44 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
-    # B=1), the others at the training shapes; launches from the main
-    # paths' runs
+    # B=1), the others at the training shapes, the device close's at the
+    # llama_350m store; launches from the main paths' runs
+    sources = {"flash_fwd": ("flash_fwd.cu", PALLAS + "flash_attention.py:86"),
+               "flash_bwd_dq": ("flash_bwd.cu",
+                                PALLAS + "flash_attention.py:162"),
+               "flash_bwd_dkv": ("flash_bwd.cu",
+                                 PALLAS + "flash_attention.py:202"),
+               "fused_sgd": ("fused_update.cu", PALLAS + "fused_update.py:42"),
+               "fused_momentum": ("fused_update.cu",
+                                  PALLAS + "fused_update.py:46"),
+               "fused_adam": ("fused_update.cu", PALLAS + "fused_update.py:53"),
+               **{name: ("device_apply.cu", DEVICE_APPLY_REF + line)
+                  for name, line in DA_REPLACES.items()}}
     by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
-                      "train": train_launches[name],
-                      "ps_round": round_launches[name],
-                      "ps_wire_round": wire_launches[name],
-                      "config1_wire": config1_launches[name],
-                      "mlp_train": mlp_launches[name]}
-               for name in train_launches}
+                      "train": train_launches.get(name, 0),
+                      "ps_round": round_launches.get(name, 0),
+                      "ps_device_round": device_launches.get(name, 0),
+                      "ps_wire_round": wire_launches.get(name, 0),
+                      "config1_wire": config1_launches.get(name, 0),
+                      "mlp_train": mlp_launches.get(name, 0)}
+               for name in sources}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
-                                            if k != "flash_fwd"}, **update_t}
-    sources = {"flash_fwd": ("flash_fwd.cu", "flash_attention.py:86"),
-               "flash_bwd_dq": ("flash_bwd.cu", "flash_attention.py:162"),
-               "flash_bwd_dkv": ("flash_bwd.cu", "flash_attention.py:202"),
-               "fused_sgd": ("fused_update.cu", "fused_update.py:42"),
-               "fused_momentum": ("fused_update.cu", "fused_update.py:46"),
-               "fused_adam": ("fused_update.cu", "fused_update.py:53")}
+                                            if k != "flash_fwd"}, **update_t,
+             **da_t}
     kernels = []
-    for name, (src, tpu) in sources.items():
+    for name, (src, replaces) in sources.items():
         t = times[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"{PACKAGE}/csrc/{src}",
-                 "replaces": PALLAS + tpu, "launches": launches[name],
+                 "replaces": replaces, "launches": launches[name],
                  "max_abs_err": max_err[name], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
         kernels.append(entry)
-    if any(k["launches"] <= 0 or k["launches_by_path"]["ps_round"] <= 0
+    if any(k["launches"] <= 0 or (k["name"] not in DA_REPLACES and
+                                  k["launches_by_path"]["ps_round"] <= 0)
            for k in kernels):
         fail(f"a kernel of the main paths never launched: {by_path}")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

@@ -17,8 +17,13 @@ Flags beyond the reference's argv (src/parameter_main.cpp:6-18):
                      the fused-update kernel, bit-exact with the host
                      numpy sgd), pallas_{momentum,adam}, or
                      device_{sgd,momentum,adam,adamw,adamw_bf16} for a
-                     store on the device, or sgd | momentum | adam | adamw
-                     | lion on the host (core/optimizer.py make_optimizer)
+                     store on the device, sharded_{sgd,momentum,adam,
+                     adamw,lion} for the device close (with
+                     PSDT_DEVICE_APPLY=1, and PSDT_ARENA=1 for its flat
+                     slabs; a device_ name of those rules resolves to it
+                     under PSDT_DEVICE_APPLY=1), or sgd | momentum | adam
+                     | adamw | lion on the host (core/optimizer.py
+                     make_optimizer)
     --staleness=N    bounded-staleness async mode (0 = synchronous)
     --aggregation=S  streaming (default) | buffered
     --ckpt-dir=D     checkpoint directory (default .)
@@ -108,7 +113,8 @@ def main(argv: list[str] | None = None) -> int:
         ps.stop()
         if report:
             from .exit_report import write_exit_report
-            write_exit_report(report, "ps")
+            write_exit_report(report, "ps",
+                              optimizer=type(ps.optimizer).__name__)
     return 0
 
 

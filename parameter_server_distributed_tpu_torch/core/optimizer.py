@@ -16,15 +16,20 @@ dicts hold the old ones); slots update in place.
 Striping: optimizer state is keyed per tensor name, so the striped
 barrier close calls :meth:`HostOptimizer.tick` once per logical step and
 then :meth:`HostOptimizer.apply_shard` concurrently over disjoint name
-subsets.  The device optimizers (async_sgd/device_optimizer.py) apply
-the whole store at once and leave ``supports_striping`` False.
+subsets.  ``PallasOptimizer`` and ``DeviceOptimizer``
+(async_sgd/device_optimizer.py) apply the whole store at once and leave
+``supports_striping`` False; ``ShardedDeviceOptimizer`` is striped like
+the host optimizers.
 
 :func:`make_optimizer` selects by name: plain names are the host
 optimizers, ``pallas_<rule>`` the fused-update kernels
 (``PallasOptimizer``), ``device_<rule>`` the optax rules in torch
-(``DeviceOptimizer``).  When the card an accelerator optimizer needs is
-absent, it degrades to the matching host optimizer and counts
-``ps.apply.device_fallback``; an unknown rule raises.
+(``DeviceOptimizer``), ``sharded_<rule>`` the device close's
+``ShardedDeviceOptimizer``; under ``PSDT_DEVICE_APPLY=1`` a
+``device_<rule>`` the sharded family implements resolves to it.  When
+the card an accelerator optimizer needs is absent, it degrades to the
+matching host optimizer and counts ``ps.apply.device_fallback``; an
+unknown rule raises.
 """
 
 from __future__ import annotations
@@ -40,9 +45,6 @@ from ..native import lib as native_lib
 from ..obs import stats as obs_stats
 
 log = logging.getLogger("pst.optimizer")
-
-# where each unported family is planned
-ROADMAP_SHARDED = "ROADMAP.md Queue 1, item 5 (sharded device apply)"
 
 
 class HostOptimizer:
@@ -370,10 +372,19 @@ def _host_optimizer_for_rule(rule: str, learning_rate: float,
 def _make_accelerator_optimizer(kind: str, rule: str, learning_rate: float,
                                 momentum: float, weight_decay: float,
                                 device) -> HostOptimizer | None:
-    """A ``pallas_*`` or ``device_*`` optimizer on ``device``; None for a
-    rule the family does not implement (the caller raises)."""
-    from ..async_sgd.device_optimizer import DeviceOptimizer, PallasOptimizer
+    """A ``pallas_*``, ``device_*`` or ``sharded_*`` optimizer on
+    ``device``; None for a rule the family does not implement (the caller
+    raises)."""
+    from ..async_sgd.device_optimizer import (DeviceOptimizer,
+                                              PallasOptimizer,
+                                              ShardedDeviceOptimizer)
 
+    if kind == "sharded":
+        if rule not in ShardedDeviceOptimizer.RULES:
+            return None
+        return ShardedDeviceOptimizer(rule, learning_rate, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      device=device)
     if kind == "pallas":
         if rule not in PallasOptimizer.RULES:
             return None
@@ -388,23 +399,30 @@ def make_optimizer(name: str, learning_rate: float, momentum: float = 0.9,
                    weight_decay: float = 1e-4, device=None) -> HostOptimizer:
     """PS optimizer by name: ``sgd|momentum|adam|adamw|lion`` are the host
     optimizers above; ``pallas_<sgd|momentum|adam>`` the fused-update
-    kernels and ``device_<sgd|momentum|adam|adamw|adamw_bf16>`` the optax
-    rules in torch, both on ``device`` (default: the card).
+    kernels, ``device_<sgd|momentum|adam|adamw|adamw_bf16>`` the optax
+    rules in torch and ``sharded_<sgd|momentum|adam|adamw|lion>`` the
+    device close's stripe-sliceable family, all on ``device`` (default:
+    the card).  With ``PSDT_DEVICE_APPLY=1`` a ``device_<rule>`` name the
+    sharded family implements resolves to it.
 
     When the card is absent (constructing the accelerator optimizer
     raises ``RuntimeError`` from ``device.resolve_device``), the matching
     host optimizer takes its place, counted in
-    ``ps.apply.device_fallback`` and logged.  An unknown rule raises; so
-    does ``sharded_*`` (not ported).  A kernel that fails to build or
-    launch later, at apply time, raises there: that is not a degrade."""
+    ``ps.apply.device_fallback`` and logged.  An unknown rule raises.  A
+    kernel that fails to build or launch later, at apply time, raises
+    there: that is not a degrade."""
+    from . import device_apply
+
     name = name.lower()
     if name in HOST_OPTIMIZERS:
         return _host_optimizer_for_rule(name, learning_rate, momentum,
                                         weight_decay)
     kind, _, rule = name.partition("_")
-    if kind == "sharded" and rule:
-        raise NotImplementedError(f"optimizer {name!r}: {ROADMAP_SHARDED}")
-    if rule and kind in ("device", "pallas"):
+    if kind == "device" and device_apply.enabled():
+        from ..async_sgd.device_optimizer import ShardedDeviceOptimizer
+        if rule in ShardedDeviceOptimizer.RULES:
+            kind = "sharded"
+    if rule and kind in ("device", "pallas", "sharded"):
         try:
             opt = _make_accelerator_optimizer(kind, rule, learning_rate,
                                               momentum, weight_decay, device)

@@ -31,18 +31,30 @@ partition the store by tensor name: streaming folds run their numpy adds
 under per-stripe locks outside ``_state_lock``, and a host optimizer's
 apply runs stripe-parallel; results are bit-for-bit the serial ones.
 
-Device optimizers (``PallasOptimizer``, ``DeviceOptimizer``) return
-torch tensors on their device, and the core stores and serves those as
-they are: a worker on the same card packs them there with no host copy.
-Everything that needs numpy (snapshots, checkpoints, optimizer state)
-reads the store through ``core.tensor.to_host``.  In async mode the apply
-records a CUDA event; while it is pending the previous store is served,
-and the next apply waits on it first (one apply in flight at most).
+Device optimizers (``PallasOptimizer``, ``DeviceOptimizer``,
+``ShardedDeviceOptimizer``) return torch tensors on their device, and the
+core stores and serves those as they are: a worker on the same card
+packs them there with no host copy.  Everything that needs numpy
+(snapshots, checkpoints, optimizer state) reads the store through
+``core.tensor.to_host``.  In async mode the apply records a CUDA event;
+while it is pending the previous store is served, and the next apply
+waits on it first (one apply in flight at most).
+
+The device close (``PSDT_DEVICE_APPLY=1`` with the sharded optimizer,
+core/device_apply.py): streaming sync folds of device-decoded chunks
+(:meth:`ParameterServerCore.device_fold`) accumulate on the device, the
+scale and the update run there, bit for bit the host numpy close.  With
+``PSDT_ARENA=1`` (core/arena.py) the sums, params and slots live as one
+flat slab per stripe: a fold is one launch per (chunk, stripe), the
+scale and the update one per stripe, and the published store is an
+``ArenaStore`` of host views read back once per stripe; what the flat
+layout cannot represent takes the per-tensor device close for that
+close, counted in ``ps.apply.arena_fallback``.
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item when asked for: tier contributions and aggregate ids, K-of-N quorum
-barriers, free-run mode, ``PSDT_ARENA`` and ``PSDT_DEVICE_APPLY``.  Left
-out: the delta sink, the barrier relay, replication and resharding
+barriers, free-run mode, and ``PSDT_DEVICE_STAGE_CHUNK``.  Left out: the
+delta sink, the barrier relay, replication and resharding
 (``install_tensors``/``retire_tensors``), the sharded updater and the
 flight recorder (ROADMAP.md Queue 1).
 """
@@ -62,6 +74,8 @@ from ..async_sgd.damping import async_damping
 from ..native import lib as native_lib
 from ..native import mean_over_workers_native, mean_sgd_native
 from ..obs import stats as obs_stats
+from . import arena as arena_mod
+from . import device_apply
 from .optimizer import SGD, HostOptimizer
 from .stripes import partition_names, run_striped, stripe_count, stripe_of
 from .tensor import TensorStore, store_nbytes, to_host, tree_like
@@ -74,8 +88,6 @@ TIER_AGGREGATE_ID_BASE = 1 << 20
 # where each unported option is planned
 ROADMAP_TIERS = "ROADMAP.md Queue 1, item 10 (hierarchical aggregation)"
 ROADMAP_ELASTIC = "ROADMAP.md Queue 1, item 11 (quorum barriers, free-run)"
-ROADMAP_DEVICE_APPLY = ("ROADMAP.md Queue 1, item 5 (sharded device apply, "
-                        "flat arena)")
 
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -95,9 +107,7 @@ def _refuse_unported(contributions_fn, quorum, freerun) -> None:
             os.environ.get("PSDT_FREERUN", "").lower() in _TRUTHY):
         raise NotImplementedError(f"free-run mode (freerun / PSDT_FREERUN): "
                                   f"{ROADMAP_ELASTIC}")
-    for env in ("PSDT_ARENA", "PSDT_DEVICE_APPLY"):
-        if os.environ.get(env, "") not in ("", "0"):
-            raise NotImplementedError(f"{env}: {ROADMAP_DEVICE_APPLY}")
+    device_apply.stage_chunk_elems()   # raises where it is asked for
 
 
 class IterationState:
@@ -194,17 +204,31 @@ class PushSink:
 
 def _fold_one(accum: TensorStore, counts: dict[str, int], name: str,
               g) -> int:
-    """Fold one tensor into the running accumulator: the first
-    contribution seeds an owned f32 copy (never the pushed buffer, which
-    the worker may reuse), later ones add in place.  Returns the bytes
+    """Fold one tensor into the running accumulator, by the gradient's
+    residence: the first contribution seeds an owned f32 copy (never the
+    pushed buffer, which the worker may reuse, or a decoded tensor that
+    views a message), numpy's ``np.array`` on the host and
+    ``device_apply.owned_copy`` for a device-decoded tensor; later ones
+    add in place.  A mixed stream converges on the device: a device
+    gradient moves a host accumulator there, and a host gradient is
+    uploaded into a device one; nothing is read back.  Returns the bytes
     newly resident.  Raises, mutating nothing, on a shape mismatch."""
     acc = accum.get(name)
     if acc is None:
-        acc = np.array(g, dtype=np.float32)
+        if device_apply.is_device_array(g):
+            acc = device_apply.owned_copy(g, g.device)
+        else:
+            acc = np.array(g, dtype=np.float32)
         accum[name] = acc
         counts[name] = 1
         return int(acc.nbytes)
-    np.add(acc, np.asarray(g, np.float32), out=acc)
+    if isinstance(acc, np.ndarray) and not device_apply.is_device_array(g):
+        np.add(acc, g, out=acc)
+    elif isinstance(acc, np.ndarray):
+        accum[name] = device_apply.fold_add(
+            device_apply.owned_copy(acc, g.device), g)
+    else:
+        accum[name] = device_apply.fold_add(acc, g)
     counts[name] += 1
     return 0
 
@@ -305,6 +329,17 @@ class ParameterServerCore:
         # called with the iteration by the thread that published a store
         # (see set_apply_hook)
         self._apply_hook: Callable[[int], None] | None = None
+        self._obs_readback = obs_stats.histogram("ps.apply.readback_s")
+        # the flat arena (core/arena.py): streaming sync cores whose
+        # optimizer speaks the slab family, on a device that exists
+        opt_device = getattr(self._optimizer, "device", None)
+        self._arena = (
+            arena_mod.ArenaManager(self._stripes, opt_device)
+            if (arena_mod.enabled() and self._streaming
+                and self._staleness_bound == 0
+                and getattr(self._optimizer, "supports_arena", False)
+                and device_apply.available(opt_device))
+            else None)
 
     # ------------------------------------------------------------------ props
     @property
@@ -323,11 +358,25 @@ class ParameterServerCore:
     def _streaming(self) -> bool:
         return self._aggregation == "streaming"
 
+    def device_fold(self):
+        """The device push chunks should decode onto
+        (rpc/data_plane.decode_gradients), or None: the optimizer's
+        device when ``PSDT_DEVICE_APPLY`` is set, the optimizer is the
+        sharded device family and its device exists.  Streaming sync mode
+        only: buffered and async modes stage and apply on the host."""
+        if not (self._streaming and self.synchronous
+                and device_apply.enabled()
+                and device_apply.wants_device_fold(self._optimizer)):
+            return None
+        device = getattr(self._optimizer, "device", None)
+        return device if device_apply.available(device) else None
+
     def _note_device_apply(self, store: TensorStore) -> None:
         """Count an apply whose fresh store holds a device optimizer's
-        tensors (the reference also starts their readback here; the port
-        serves them as they are)."""
-        if any(isinstance(v, torch.Tensor) for v in store.values()):
+        tensors.  A per-tensor store is served as it is (its serve reads
+        it through ``to_host``, one packed copy); the flat close reads
+        its slabs back itself (:meth:`_apply_arena_sync`)."""
+        if device_apply.is_device_store(store):
             self._obs_device_applies.add()
 
     def _params_ready(self) -> bool:
@@ -404,6 +453,8 @@ class ParameterServerCore:
             self._params = store
             self._params_event = None
             self._params_version += 1
+        if self._arena is not None:
+            self._arena.invalidate()
 
     def get_parameters(self) -> TensorStore:
         with self._params_lock:
@@ -504,6 +555,8 @@ class ParameterServerCore:
             if (state is None or state.aggregated or state.sealed
                     or worker_id in state.contributors):
                 return   # the commit reports the push late or duplicate
+            if gradients:
+                self._maybe_arena_accum_locked(state)
             folded = state.folded.setdefault(worker_id, set())
             if self._stripes <= 1:
                 self._fold_into_locked(state, folded, gradients)
@@ -519,11 +572,66 @@ class ParameterServerCore:
             state.inflight += 1
         self._fold_striped(state, worker_id, iteration, todo)
 
+    def _maybe_arena_accum_locked(self, state: IterationState) -> None:
+        """Fix a fresh iteration state's accumulator residence (caller
+        holds _state_lock): with the arena armed and a packing table for
+        the live store, the sums live as per-stripe slabs
+        (``ArenaAccum``) from the first fold on.  A state that already
+        accumulated per tensor stays so."""
+        if self._arena is None or not self._arena.active:
+            return
+        if isinstance(state.accum, arena_mod.ArenaAccum):
+            return
+        if state.accum or state.counts:
+            return
+        with self._params_lock:
+            store = self._params
+        table = self._arena.ensure_table(store)
+        if table is not None:
+            state.accum = self._arena.new_accum(table)
+
+    def _arena_fold(self, state: IterationState, folded: set,
+                    gradients: Mapping) -> int:
+        """Fold into the arena accumulator, one launch per (stripe, lane)
+        of the chunk.  Names the table cannot represent exactly (unknown,
+        or numpy's broadcast-up) fold per tensor into the accumulator's
+        overflow, a slab-resident partial sum evicted there first so it
+        accumulates in one place; their presence sends the close down the
+        per-tensor path.  Returns bytes newly resident and marks names
+        folded as they land.  Caller holds the lock covering the touched
+        stripes."""
+        accum: arena_mod.ArenaAccum = state.accum
+        table = accum.table
+        added = 0
+        by_stripe: dict[int, list] = {}
+        for name, g in gradients.items():
+            if name in folded:
+                continue
+            if (table.compatible(name, g) and name not in accum.overflow
+                    and name not in accum.popped):
+                by_stripe.setdefault(table.entries[name].stripe,
+                                     []).append((name, g))
+            else:
+                accum.evict_to_overflow(name)
+                added += _fold_one(accum.overflow, state.counts, name, g)
+                folded.add(name)
+        for stripe in sorted(by_stripe):
+            items = by_stripe[stripe]
+            added += accum.fold_group(stripe, items, state.counts)
+            folded.update(name for name, _ in items)
+        return added
+
     def _fold_into_locked(self, state: IterationState, folded: set,
                           gradients: Mapping[str, np.ndarray]) -> None:
         """The serial fold (caller holds _state_lock), used at stripes 1.
         A name is marked folded only after its add, so a retry of a
         failed fold is not dropped."""
+        if isinstance(state.accum, arena_mod.ArenaAccum):
+            added = self._arena_fold(state, folded, gradients)
+            if added:
+                state.buffer_bytes += added
+                self._grad_buffer_note(added)
+            return
         added = 0
         try:
             for name, g in gradients.items():
@@ -551,14 +659,29 @@ class ParameterServerCore:
 
         def fold_group(idx: int, stripe: int, items: list) -> None:
             with self._stripe_locks[stripe]:
+                if isinstance(state.accum, arena_mod.ArenaAccum):
+                    # one launch per lane over the stripe's slab (the
+                    # reservation filtered duplicates already)
+                    local: set[str] = set()
+                    added_by[idx] += self._arena_fold(state, local,
+                                                      dict(items))
+                    done_by[idx].extend(local)
+                    return
                 for name, g in items:
                     added_by[idx] += _fold_one(state.accum, state.counts,
                                                name, g)
                     done_by[idx].append(name)
 
         try:
-            run_striped([(lambda i=i, s=stripe, it=items: fold_group(i, s, it))
-                         for i, (stripe, items) in enumerate(work)])
+            thunks = [(lambda i=i, s=stripe, it=items: fold_group(i, s, it))
+                      for i, (stripe, items) in enumerate(work)]
+            if device_apply.is_device_store(dict(todo)):
+                # device folds launch from this thread: every launch goes
+                # to the device's one stream
+                for thunk in thunks:
+                    thunk()
+            else:
+                run_striped(thunks)
         finally:
             with self._state_lock:
                 state.inflight -= 1
@@ -707,7 +830,9 @@ class ParameterServerCore:
         _state_lock.  Returns False when a restore obsoleted the
         aggregate.  On an apply failure the accumulator is put back
         (already scaled sums are means, so their counts reset to 1) and
-        the exception propagates: the next push or poll retries."""
+        the exception propagates: the next push or poll retries.  An
+        arena accumulator closes flat unless the downgrade matrix sends
+        it per tensor (counted)."""
         gen = self._restore_epoch
         sums, counts = state.accum, state.counts
         state.accum, state.counts = {}, {}
@@ -721,9 +846,22 @@ class ParameterServerCore:
             try:
                 with self._apply_lock:
                     if self._restore_epoch == gen:
-                        self._scale_striped(sums, counts)
-                        scaled = True
-                        self._apply_update(sums)
+                        if isinstance(sums, arena_mod.ArenaAccum):
+                            reason = self._arena_fallback_reason(sums,
+                                                                 counts)
+                            if reason is not None:
+                                self._arena.fallback(reason)
+                                sums = sums.to_tensor_dict()
+                        if isinstance(sums, arena_mod.ArenaAccum):
+                            # one scale launch per stripe (counts proven
+                            # uniform), then the flat update
+                            sums.scale_uniform(next(iter(counts.values())))
+                            scaled = True
+                            self._apply_arena_sync(sums)
+                        else:
+                            self._scale_striped(sums, counts)
+                            scaled = True
+                            self._apply_update(sums)
             finally:
                 self._state_lock.acquire()
         except BaseException:
@@ -784,22 +922,100 @@ class ParameterServerCore:
                        counts: dict[str, int]) -> None:
         """In place sums -> means, per stripe on the shared pool (the
         per-tensor operation is unchanged, so the result is bit-for-bit
-        the serial loop's).  Caller holds _apply_lock."""
+        the serial loop's).  Device sums scale with one ``scale_mean``
+        launch per stripe, issued from this thread.  Caller holds
+        _apply_lock."""
         def scale_group(names: list[str]) -> None:
+            on_device = [n for n in names
+                         if device_apply.is_device_array(sums[n])]
+            if on_device:
+                device_apply.scale_means(sums, counts, on_device)
             for name in names:
-                sums[name] *= np.float32(1.0 / counts[name])
+                if not device_apply.is_device_array(sums[name]):
+                    sums[name] *= np.float32(1.0 / counts[name])
 
         if self._stripes <= 1 or len(sums) <= 1:
             scale_group(list(sums))
             return
+        if device_apply.is_device_store(sums):
+            for names in partition_names(sums, self._stripes):
+                scale_group(names)
+            return
         run_striped([(lambda ns=ns: scale_group(ns))
                      for ns in partition_names(sums, self._stripes)])
 
+    # ------------------------------------------------------ the flat close
+    def _arena_fallback_reason(self, sums: "arena_mod.ArenaAccum",
+                               counts: dict[str, int]) -> str | None:
+        """None when the flat close may run; otherwise why this close
+        takes the per-tensor path (core/arena.py's downgrade matrix).
+        Caller holds _apply_lock."""
+        if self._arena is None or not self._arena.active:
+            return "disabled"
+        with self._params_lock:
+            store = self._params
+        live = self._arena.ensure_table(store)
+        if live is None or live.epoch != sums.table.epoch:
+            return "epoch"
+        if not sums.full_coverage():
+            return "coverage"
+        values = iter(counts.values())
+        first = next(values, None)
+        if first is None or any(c != first for c in values):
+            return "counts"
+        ready = getattr(self._optimizer, "arena_ready", None)
+        if ready is None or not ready(sums.table):
+            return "slots"
+        return None
+
+    def _apply_arena_sync(self, sums: "arena_mod.ArenaAccum") -> None:
+        """The flat close (caller holds _apply_lock; ``sums`` already
+        means): one update launch per stripe over the slabs, one readback
+        per stripe into pinned host memory, and the published store an
+        ``ArenaStore`` of views into it.  The readback is waited on
+        before the store is published, so every reader of the store
+        finds its bytes there.  A packing failure latches the arena off
+        and completes this close per tensor."""
+        table = sums.table
+        with self._params_lock:
+            prev = self._params
+        try:
+            param_slabs = self._arena.ensure_param_slabs(prev, table)
+        except Exception as exc:  # noqa: BLE001 — packing never fails a
+            # close: the per-tensor device path is always correct
+            self._arena.latch_off(f"{type(exc).__name__}: {exc}")
+            self._apply_update(sums.to_tensor_dict())
+            return
+        opt = self._optimizer
+        opt.tick()
+        new_slabs = opt.apply_arena(table, param_slabs, sums.slabs)
+        t0 = time.perf_counter()
+        readback = device_apply.readback_async(new_slabs)
+        readback.wait()
+        self._obs_readback.observe(time.perf_counter() - t0)
+        host_slabs = readback.arrays()
+        per_stripe = {s: table.views(s, h) for s, h in host_slabs.items()}
+        # the store's key order is kept: checkpoints and serve chunks are
+        # laid out as the per-tensor path's
+        store = arena_mod.ArenaStore(
+            {name: per_stripe[table.entries[name].stripe][name]
+             for name in prev}, table, host_slabs, readback)
+        with self._params_lock:
+            if self._params is not prev:
+                return   # initialize_parameters() landed: it wins
+            self._params = store
+            self._params_version += 1
+        self._arena.adopt(store, new_slabs)
+        self._arena.note_close()
+        self._obs_device_applies.add()
+
     def _apply_striped_sync(self, prev: TensorStore,
                             mean_grads: TensorStore) -> None:
-        """Stripe-parallel synchronous apply of a host optimizer: tick
-        once, then ``apply_shard`` per stripe; the merged store is swapped
-        in under _params_lock.  The caller serializes applies."""
+        """Striped synchronous apply: tick once, then ``apply_shard`` per
+        stripe, on the shared pool for a host optimizer and from this
+        thread for a device-resident one (its launches share the
+        device's one stream); the merged store is swapped in under
+        _params_lock.  The caller serializes applies."""
         opt = self._optimizer
         opt.tick()
         name_groups = partition_names(prev, self._stripes)
@@ -813,9 +1029,13 @@ class ParameterServerCore:
             stripe_s[idx] = time.perf_counter() - t1
             return res
 
+        thunks = [(lambda i=i, ns=ns: apply_group(i, ns))
+                  for i, ns in enumerate(name_groups)]
         t0 = time.perf_counter()
-        parts = run_striped([(lambda i=i, ns=ns: apply_group(i, ns))
-                             for i, ns in enumerate(name_groups)])
+        if device_apply.wants_device_fold(opt):
+            parts = [thunk() for thunk in thunks]
+        else:
+            parts = run_striped(thunks)
         wall = time.perf_counter() - t0
         by_name: TensorStore = {}
         for part in parts:
@@ -1040,6 +1260,8 @@ class ParameterServerCore:
                 # bumped under _apply_lock: an in-flight streaming close
                 # sees it before its apply (skips) or after (drops)
                 self._restore_epoch += 1
+                if self._arena is not None:
+                    self._arena.invalidate()
             self._epoch = int(epoch)
             self._current_iteration = int(iteration)
             self._iteration_states.clear()

@@ -54,7 +54,12 @@ def to_host(store: Mapping) -> TensorStore:
     come back as host copies that share no memory with them (optimizer
     slots keep updating in place): those on the host one by one, those
     off it in one packed copy per device, whatever the tensor count (the
-    returned arrays are views into that copy)."""
+    returned arrays are views into that copy).  An ``ArenaStore``
+    (core/arena.py) is read as the views into its host slabs that it
+    holds, after its readback's event."""
+    wait = getattr(store, "wait", None)
+    if callable(wait):
+        wait()
     out: TensorStore = {}
     remote: dict[torch.device, list[str]] = {}
     for name, value in store.items():

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/torch_kernels/`` beside the
 package, as a shared library loaded with ``ctypes``.  The library's file
 name carries a hash of its source, of every ``csrc/`` header it includes
-(``#include "x.cuh"``, followed through headers) and of the flags, so an
+(``#include "x.cuh"``, followed through headers) and of its flags
+(:func:`flags`: the common ones and the source's own), so an
 edited source or header never loads a stale build, and processes that
 share a checkout share a build.
 Nothing here runs at import: the CPU has no ``nvcc``, and the CPU paths
@@ -25,9 +26,14 @@ import time
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
-SOURCES = ("flash_fwd", "flash_bwd", "fused_update")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_update", "device_apply")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source beyond NVCC_FLAGS: the PS close's kernels are held
+# to the host numpy optimizers bit for bit, so every operation rounds on
+# its own (no contraction into FMAs, IEEE divide and sqrt, denormals kept)
+EXTRA_FLAGS = {"device_apply": ("--fmad=false", "-prec-div=true",
+                                "-prec-sqrt=true", "-ftz=false")}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 
@@ -65,8 +71,13 @@ def inputs(name: str) -> list[str]:
     return found
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """The nvcc flags ``csrc/<name>.cu`` builds with."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(flags(name)).encode())
     for fname in sorted(inputs(name)):
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
@@ -87,7 +98,7 @@ def build(names=SOURCES) -> dict[str, float]:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         proc = subprocess.Popen(
-            [compiler, *NVCC_FLAGS, "-o", tmp,
+            [compiler, *flags(name), "-o", tmp,
              os.path.join(CSRC, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())

@@ -34,8 +34,12 @@ transport error mid-round downgrades the connection to gRPC for good,
 and each downgrade counts one ``rpc.shm.fallback``; a failed round is
 replayed over gRPC.
 
-Not ported: versioned delta serving (ROADMAP.md Queue 1, item 12) and
-device-side decode for the sharded device apply (item 5).
+:func:`decode_gradients` decodes a push chunk for the fold: to host
+numpy, or, for a core whose close runs on its device
+(``ParameterServerCore.device_fold``), onto that device with the
+dequantize there (core/device_apply.py).
+
+Not ported: versioned delta serving (ROADMAP.md Queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -60,6 +64,19 @@ log = logging.getLogger("pst.data_plane")
 # Default chunk budget for streamed pushes/pulls; PSDT_STREAM_CHUNK_BYTES
 # overrides, 0 disables streaming entirely.
 DEFAULT_CHUNK_BYTES = 32 << 20
+
+
+def decode_gradients(tensors: Iterable[m.Tensor], device=None) -> dict:
+    """One push chunk's wire Tensors -> fold-ready arrays: host numpy
+    (``Tensor.to_array``) when ``device`` is None or False, else f32
+    tensors on ``device`` (core/device_apply.tensor_to_device: packed
+    payloads cross as their wire bytes and dequantize there)."""
+    if device is None or device is False:
+        return {t.name: t.to_array() for t in tensors}
+    from ..core import device_apply
+
+    return {t.name: device_apply.tensor_to_device(t, device)
+            for t in tensors}
 
 
 def stream_chunk_bytes() -> int:

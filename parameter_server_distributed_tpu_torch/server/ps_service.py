@@ -58,12 +58,12 @@ from ..checkpoint.manager import CheckpointManager
 from ..config import ParameterServerConfig
 from ..core.optimizer import make_optimizer
 from ..core.ps_core import ParameterServerCore, PushSink
-from ..core.tensor import from_wire, to_wire
+from ..core.tensor import to_wire
 from ..device import resolve_device
 from ..obs import stats as obs_stats
 from ..rpc import messages as m
 from ..rpc import shm_transport
-from ..rpc.data_plane import (PreEncodedParameterUpdate,
+from ..rpc.data_plane import (PreEncodedParameterUpdate, decode_gradients,
                               encode_parameter_record_groups, split_tensors,
                               stream_chunk_bytes)
 from ..rpc.service import bind_service, make_server
@@ -188,7 +188,7 @@ class ParameterServerService:
     # RPC: push gradients (reference: src/parameter_server_service.cpp:32-59)
     def ReceiveGradients(self, request: m.GradientUpdate,
                          context) -> m.PushResponse:
-        grads = from_wire(request.gradients)
+        grads = decode_gradients(request.gradients, self.core.device_fold())
         result = self._apply(request.worker_id, request.iteration, grads)
         return self._push_result_response(result)
 
@@ -284,7 +284,8 @@ class ParameterServerService:
             if sink is None:
                 sink = self.core.begin_push(chunk.worker_id, chunk.iteration)
             if chunk.gradients:
-                sink.fold(from_wire(chunk.gradients))
+                sink.fold(decode_gradients(chunk.gradients,
+                                           self.core.device_fold()))
         if sink is None:
             return m.PushResponse(success=False, message="empty push stream")
         return self._push_result_response(self._commit(sink))
@@ -340,7 +341,8 @@ class ParameterServerService:
                 sink = self.core.begin_push(chunk.worker_id, chunk.iteration)
                 pull_wire_dtype = chunk.pull_wire_dtype
             if chunk.gradients:
-                sink.fold(from_wire(chunk.gradients))
+                sink.fold(decode_gradients(chunk.gradients,
+                                           self.core.device_fold()))
         if sink is None:
             yield m.PushPullResponse(push=m.PushResponse(
                 success=False, message="empty push stream"))
@@ -491,12 +493,13 @@ class ParameterServer:
     def __init__(self, config: ParameterServerConfig):
         self.config = config
         self.device = resolve_device(config.device)
-        optimizer = make_optimizer(config.optimizer, config.learning_rate,
-                                   config.momentum, config.weight_decay,
-                                   device=self.device)
+        self.optimizer = make_optimizer(config.optimizer,
+                                        config.learning_rate,
+                                        config.momentum, config.weight_decay,
+                                        device=self.device)
         self.core = ParameterServerCore(
             total_workers=config.total_workers,
-            optimizer=optimizer,
+            optimizer=self.optimizer,
             staleness_bound=config.staleness_bound,
             gc_iterations=config.gc_iterations,
             aggregation=config.aggregation or None,

@@ -53,3 +53,18 @@ def test_every_port_source_hashes_its_headers():
     for name in ("flash_fwd", "flash_bwd"):
         assert "flash_mma.cuh" in build.inputs(name)
     assert build.inputs("fused_update") == ["fused_update.cu"]
+
+
+def test_the_device_close_builds_without_contraction(monkeypatch):
+    """csrc/device_apply.cu is held to the host numpy optimizers bit for
+    bit: its build adds no-FMA, IEEE divide / sqrt and denormal flags,
+    which its library name hashes; the other sources keep the common
+    flags."""
+    assert "device_apply" in build.SOURCES
+    extra = build.flags("device_apply")[len(build.NVCC_FLAGS):]
+    assert set(extra) == {"--fmad=false", "-prec-div=true",
+                          "-prec-sqrt=true", "-ftz=false"}
+    assert build.flags("fused_update") == build.NVCC_FLAGS
+    before = build.library_path("device_apply")
+    monkeypatch.setitem(build.EXTRA_FLAGS, "device_apply", ())
+    assert build.library_path("device_apply") != before

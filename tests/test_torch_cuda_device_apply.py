@@ -1,0 +1,285 @@
+"""The device close's four kernels on the card (csrc/device_apply.cu
+through ops/device_apply.py) against their plain PyTorch versions on the
+same inputs, bytes equal; the sharded optimizer and the core's device
+close (per tensor and flat) on the card against the host numpy
+optimizers, bytes equal.  Marked ``cuda``; skips without a card.  On
+one, run ``python -m pytest --noconftest
+tests/test_torch_cuda_device_apply.py -m cuda``.  Imports neither
+``jax`` nor the JAX package.  Inputs are seeded with numpy; odd sizes
+and unaligned offsets reach the kernels' scalar tails."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from parameter_server_distributed_tpu_torch import native
+from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+    import ShardedDeviceOptimizer
+from parameter_server_distributed_tpu_torch.core import device_apply
+from parameter_server_distributed_tpu_torch.core.optimizer import \
+    make_optimizer
+from parameter_server_distributed_tpu_torch.core.ps_core import \
+    ParameterServerCore
+from parameter_server_distributed_tpu_torch.core.tensor import to_host
+from parameter_server_distributed_tpu_torch.ops import device_apply as da
+from parameter_server_distributed_tpu_torch.rpc import codec
+
+SHAPES = {"emb/w": (129, 33), "l0/w": (64, 65), "l0/b": (65,),
+          "head/w": (33, 17), "odd": (513,)}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    native.set_enabled(False)
+    try:
+        yield torch.device("cuda")
+    finally:
+        native.set_enabled(os.environ.get("PSDT_NATIVE", "1").lower()
+                           not in ("0", "false"))
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.shape == b.shape
+            and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+
+
+def _stores_equal(a, b) -> bool:
+    a, b = to_host(a), to_host(b)
+    return set(a) == set(b) and all(
+        np.asarray(a[k], np.float32).tobytes()
+        == np.asarray(b[k], np.float32).tobytes() for k in a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("add", [False, True])
+def test_fold_segments_matches_plain(card, src, add):
+    rng = np.random.default_rng(1)
+    dst = torch.from_numpy(rng.standard_normal(70001).astype(np.float32))
+    raw = rng.standard_normal(50001).astype(np.float32)
+    source = {"f32": torch.from_numpy(raw),
+              "bf16": torch.from_numpy(raw).bfloat16(),
+              "int8": torch.from_numpy(rng.integers(-127, 128, 50001,
+                                                    dtype=np.int8))}[src]
+    rows = [(3, 5, 40000), (40007, 0, 1), (50000, 1001, 20001)]
+    got, want = dst.to(card), dst.clone()
+    s_card = source.to(card)
+    da.fold_segments([da.Segment(got, d, s_card, o, n, 0.0123)
+                      for d, o, n in rows], add)
+    da.fold_segments_reference([da.Segment(want, d, source, o, n, 0.0123)
+                                for d, o, n in rows], add)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16"])
+def test_fold_segments_many_small_rows(card, src):
+    """300 rows of 0 to 9000 elements: chunks that span many rows, rows
+    that span chunks, and empty rows, in one launch."""
+    rng = np.random.default_rng(6)
+    sizes = rng.integers(0, 9000, 300)
+    sizes[::37] = 0
+    total = int(sizes.sum())
+    dst = torch.from_numpy(rng.standard_normal(total + 3).astype(
+        np.float32))
+    source = torch.from_numpy(rng.standard_normal(total).astype(np.float32))
+    if src == "bf16":
+        source = source.bfloat16()
+    rows, off = [], 0
+    for n in sizes.tolist():
+        rows.append((off + 3, off, n))    # disjoint, 12 bytes off alignment
+        off += n
+    got, want, s_card = dst.to(card), dst.clone(), source.to(card)
+    before = da.launches["fold_segments"]
+    da.fold_segments([da.Segment(got, d, s_card, o, n) for d, o, n in rows],
+                     True)
+    assert da.launches["fold_segments"] == before + 1
+    da.fold_segments_reference([da.Segment(want, d, source, o, n)
+                                for d, o, n in rows], True)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_topk_scatter_at_chunk_edges(card):
+    total = 3 * 4096 + 5
+    idx = np.array([0, 1, 4095, 4096, 8191, 8192, total - 1], np.uint32)
+    vals = np.arange(1, 8, dtype=np.float32)
+    buf = bytearray(4 + 6 * idx.size)
+    buf[:4] = np.uint32(idx.size).tobytes()
+    buf[4:4 + 4 * idx.size] = idx.tobytes()
+    buf[4 + 4 * idx.size:] = codec.bf16_bits(vals).tobytes()
+    want = codec.PythonCodec().unpack(codec.WIRE_TOPK, bytes(buf), total)
+    got = device_apply.device_unpack(codec.WIRE_TOPK, bytes(buf), total, card)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+def test_scale_mean_matches_plain(card):
+    rng = np.random.default_rng(2)
+    xs = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+          for n in (1, 1000, 65537)]
+    got = [x.to(card) for x in xs]
+    inv = device_apply.inverse_count(3)
+    da.scale_mean([(x, inv) for x in got])
+    da.scale_mean_reference([(x, inv) for x in xs])
+    assert all(_same(g, w) for g, w in zip(got, xs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", da.RULES)
+def test_sharded_update_matches_plain(card, rule):
+    rng = np.random.default_rng(3)
+    opt = ShardedDeviceOptimizer(rule, 0.01, device="cpu")
+    opt.step = 3
+    scalars = opt._scalars()
+    slots = da.RULE_SLOTS[rule]
+    sizes = (131075, 4096, 7)
+    host_rows, card_rows = [], []
+    for i, n in enumerate(sizes):
+        tensors = [torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)) for _ in range(2 + slots)]
+        if rule in ("adam", "adamw"):
+            tensors[3] = tensors[3].abs()      # v >= 0
+        pad = [None] * (2 - slots)
+        out_h = torch.empty(n)
+        host_rows.append(da.UpdateRow(tensors[0], tensors[1], out_h,
+                                      *tensors[2:], *pad,
+                                      decay=n // 2 if i else 0,
+                                      seed=i == 1))
+        on_card = [t.to(card) for t in tensors]
+        # an unaligned view of the second row (the scalar lane)
+        if i == 1:
+            on_card = [torch.cat([t.new_zeros(1), t])[1:] for t in on_card]
+        card_rows.append(da.UpdateRow(on_card[0], on_card[1],
+                                      torch.empty(n, device=card),
+                                      *on_card[2:], *pad,
+                                      decay=n // 2 if i else 0,
+                                      seed=i == 1))
+    before = da.launches["sharded_update"]
+    da.sharded_update(rule, card_rows, scalars)
+    assert da.launches["sharded_update"] == before + 1
+    for r in host_rows:
+        da.sharded_update_reference(rule, r, scalars)
+    for h, c in zip(host_rows, card_rows):
+        assert _same(c.out, h.out)
+        for hs, cs in ((h.s0, c.s0), (h.s1, c.s1)):
+            assert hs is None or _same(cs, hs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["raw", "bf16", "int8", "topk"])
+def test_device_unpack_matches_codec(card, wire):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(10007).astype(np.float32)
+    dtype = codec.WIRE_DTYPE_NAMES[wire]
+    k = codec.topk_k(x.size, 0.05) if wire == "topk" else 0
+    buf = bytearray(codec.payload_nbytes(dtype, x.size, k))
+    codec.PythonCodec().pack_into(dtype, x, buf, k)
+    want = codec.PythonCodec().unpack(dtype, bytes(buf), x.size)
+    got = device_apply.device_unpack(dtype, bytes(buf), x.size, card)
+    assert got.is_cuda and got.cpu().numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ShardedDeviceOptimizer.RULES)
+@pytest.mark.parametrize("arena", ["0", "1"])
+def test_core_device_close_on_card_equals_host_numpy(card, monkeypatch,
+                                                     rule, arena):
+    monkeypatch.setenv("PSDT_DEVICE_APPLY", "1")
+    monkeypatch.setenv("PSDT_ARENA", arena)
+    rng = np.random.default_rng(5)
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in SHAPES.items()}
+    host = ParameterServerCore(total_workers=2, stripes=2,
+                               optimizer=make_optimizer(rule, 0.01))
+    dev = ParameterServerCore(total_workers=2, stripes=2,
+                              optimizer=make_optimizer(f"sharded_{rule}",
+                                                       0.01))
+    assert dev.device_fold() is not None
+    for core in (host, dev):
+        core.initialize_parameters(init)
+    for it in range(1, 4):
+        for wid in range(2):
+            g = {k: rng.standard_normal(s).astype(np.float32)
+                 for k, s in SHAPES.items()}
+            host.receive_gradients(wid, it, g)
+            dev.receive_gradients(wid, it, {
+                k: device_apply.upload(v, card) for k, v in g.items()})
+        assert _stores_equal(host.get_parameters(), dev.get_parameters())
+    h_state, d_state = host.optimizer_state(), dev.optimizer_state()
+    for kind in h_state:
+        if kind == "step":
+            assert h_state[kind] == d_state[kind]
+        else:
+            assert _stores_equal(h_state[kind], d_state[kind])
+
+
+def _dtoh_copies(fn) -> int:
+    """Run ``fn`` and count the ops it runs that read a card tensor and
+    give a host tensor that is not empty, or a Python number."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    scalar_ops = {torch.ops.aten._local_scalar_dense.default,
+                  torch.ops.aten.equal.default}
+    copies = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(x, torch.Tensor) and x.is_cuda
+                   for x in tree_leaves((args, kwargs))):
+                if func in scalar_ops or any(
+                        isinstance(x, torch.Tensor) and not x.is_cuda
+                        and x.numel() > 0 for x in tree_leaves(out)):
+                    copies.append(func)
+            return out
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return len(copies)
+
+
+@pytest.mark.cuda
+def test_flat_eviction_stays_on_the_card(card, monkeypatch):
+    """A broadcast push evicts a slab-resident sum into the overflow: the
+    folds that evict it and add to it copy nothing to the host, and the
+    close equals the host numpy close byte for byte."""
+    monkeypatch.setenv("PSDT_DEVICE_APPLY", "1")
+    monkeypatch.setenv("PSDT_ARENA", "1")
+    rng = np.random.default_rng(6)
+    shapes = {"w": (4, 31), "b": (17,)}
+    init = {k: rng.standard_normal(s).astype(np.float32)
+            for k, s in shapes.items()}
+    pushes = [{k: rng.standard_normal(s).astype(np.float32)
+               for k, s in shapes.items()},
+              {"w": rng.standard_normal(31).astype(np.float32),
+               "b": rng.standard_normal(17).astype(np.float32)},
+              {k: rng.standard_normal(s).astype(np.float32)
+               for k, s in shapes.items()}]
+    host = ParameterServerCore(total_workers=3, stripes=1,
+                               optimizer=make_optimizer("sgd", 0.1))
+    dev = ParameterServerCore(total_workers=3, stripes=1,
+                              optimizer=make_optimizer("sharded_sgd", 0.1))
+    for core in (host, dev):
+        core.initialize_parameters(init)
+    on_card = [{k: device_apply.upload(v, card) for k, v in g.items()}
+               for g in pushes]
+    torch.cuda.synchronize()
+
+    def folds():
+        for wid in range(2):
+            dev.receive_gradients(wid, 1, on_card[wid])
+
+    assert _dtoh_copies(folds) == 0
+    overflow = dev._iteration_states[1].accum.overflow
+    assert set(overflow) == {"w"} and overflow["w"].is_cuda
+    dev.receive_gradients(2, 1, on_card[2])
+    for wid, g in enumerate(pushes):
+        host.receive_gradients(wid, 1, g)
+    assert _stores_equal(host.get_parameters(), dev.get_parameters())

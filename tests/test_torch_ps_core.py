@@ -451,8 +451,8 @@ def test_ingress_copies_pushed_buffers():
     ({}, {"PSDT_QUORUM": "0.75"}, "item 11"),
     (dict(freerun=True), {}, "item 11"),
     ({}, {"PSDT_FREERUN": "1"}, "item 11"),
-    ({}, {"PSDT_ARENA": "1"}, "item 5"),
-    ({}, {"PSDT_DEVICE_APPLY": "1"}, "item 5"),
+    ({}, {"PSDT_DEVICE_STAGE_CHUNK": "4096"}, "item 13"),
+    ({}, {"PSDT_ARENA": "1", "PSDT_DEVICE_STAGE_CHUNK": "64"}, "item 13"),
 ])
 def test_unported_options_raise(monkeypatch, kwargs, env, match):
     for key, value in env.items():
@@ -658,8 +658,12 @@ def test_make_optimizer_unknown_rule_raises(name):
 
 
 def test_make_optimizer_sharded_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port_opt.make_optimizer("sharded_adam", 1e-3)
+    """What of the sharded family stays unported (the cross-replica
+    sharded update's range apply) raises, naming its item."""
+    opt = port_opt.make_optimizer("sharded_adam", 1e-3, device="cpu")
+    for call in (opt.apply_arena_range, opt.commit_arena_ranges):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            call()
 
 
 @pytest.mark.parametrize("name,host", [
