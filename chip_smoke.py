@@ -13,6 +13,15 @@ two paths of the port:
 - serving: a full-width llama_350m DecodeServer (bf16, 8 slots, max_len
   2048, flash prefill, random weights from a seed) answering 8 requests,
   and the serve_main CLI answering 2 JSONL requests;
+- int8 serving (serve_int8): the same store through quantize_params on a
+  DecodeServer with the int8 KV cache, the same 8 requests, the three
+  int8 kernels of csrc/int8_serve.cu (K5 int8_wdot, K6
+  decode_attention_int8, K7 kv_quantize; checked first against their
+  plain versions at the llama_350m shapes, K7 byte for byte) launched as
+  the design counts; then the radix prefix cache (a 1024-token prefix, 8
+  extensions of it, an exact resubmission), a 2-layer f32 model's int8
+  streams token-exact against generate, and serve_main and
+  generate_main with --quant=int8 --kv-cache=int8 as processes;
 - training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
   flash attention, weights from a seed) taking 5 Trainer.compute_gradients
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
@@ -902,6 +911,396 @@ def serve(torch, np, fa, rng) -> dict:
         fail(f"serve_main answered {len(done)} of 2 requests "
              f"(exit {proc.returncode})")
     return launches["flash_fwd"]
+
+
+INT8_REF = "parameter_server_distributed_tpu/models/"
+# the int8 serving kernels (csrc/int8_serve.cu) and the JAX package's
+# device program each replaces (XLA fusions, not Pallas)
+INT8_REPLACES = {"int8_wdot": "quant.py:106",
+                 "decode_attention_int8": "generation.py:224",
+                 "kv_quantize": "generation.py:79"}
+# llama_350m's (K, N) products: wq/wo, wk/wv, w1/w3, w2, lm_head
+INT8_WDOT_SHAPES = ((1024, 1024), (1024, 256), (1024, 2816), (2816, 1024),
+                    (1024, 32000))
+# the prefix leg: a shared prefix, then 8 prompts extending it
+PREFIX_LEN = 1024
+PREFIX_SUFFIXES = (64, 90, 128, 150, 180, 200, 230, 256)
+
+
+def call_us(torch, fn, calls: int = 200) -> float:
+    """Host wall time of one call in microseconds, ``calls`` back to back
+    then one synchronize (the larger of the host's and the card's time
+    a call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def same_bytes(torch, got, want) -> bool:
+    """int8 codes equal, f32 scales bytes equal."""
+    if got.dtype == torch.int8:
+        return want.dtype == torch.int8 and bool(torch.equal(got, want))
+    return bits_equal(torch, got, want)
+
+
+def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
+    """The three kernels of csrc/int8_serve.cu against their plain
+    versions on the card at the llama_350m serving shapes: int8_wdot (K5)
+    at every (K, N) of the model with M 8 (a decode round) and 2048 (the
+    largest prefill bucket), in f32 and bf16;
+    decode_attention_int8 (K6) at 8 rows, max_len 2048, 4 KV heads of 4
+    query heads, D 64, ragged limits 129..2047 and a contiguous block;
+    kv_quantize (K7) at a decode round's [8, 1, 4, 64] (one write past
+    max_len, dropped) and a 2048-token prefill stack [24, 2048, 4, 64],
+    byte for byte.  Each timed beside its plain version and its bound;
+    K5 beside a dense bf16 torch.matmul of the same shape.  Returns
+    (max_abs_err, times) by kernel name."""
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+    checks, report = {}, {}
+    max_err = {name: 0.0 for name in INT8_REPLACES}
+
+    def hold(name, label, got, want, f32):
+        err = float((got.float() - want.float()).abs().max())
+        if f32:
+            ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+        else:
+            ok = err <= 2.0 ** -7 * float(want.float().abs().max())
+        checks[f"{name}/{label}"] = ok
+        max_err[name] = max(max_err[name], err)
+
+    with torch.inference_mode():
+        for k, n in INT8_WDOT_SHAPES:
+            q = torch.randint(-127, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            scale = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+            dense = q.to(torch.bfloat16)
+            for m in (8, 2048):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, k), generator=gen, device="cuda",
+                                    dtype=dtype)
+                    hold("int8_wdot", f"{m}x{k}x{n}/{dtype}",
+                         i8.int8_wdot(x, q, scale),
+                         i8.int8_wdot_reference(x, q, scale),
+                         dtype == torch.float32)
+                ms = cuda_ms(torch, lambda: i8.int8_wdot(x, q, scale))
+                plain = cuda_ms(torch, lambda: i8.int8_wdot_reference(
+                    x, q, scale), iters=5)
+                library = cuda_ms(torch, lambda: torch.matmul(x, dense))
+                b_ms, b_by = bound(2.0 * m * k * n,
+                                   k * n + 4 * n + 2 * m * k + 4 * m * n,
+                                   "bfloat16")
+                report[f"int8_wdot {m}x{k}x{n}"] = dict(
+                    ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
+                    bound_by=b_by,
+                    # host wall time of one call, back to back: what a
+                    # host-bound decode round pays per product
+                    call_us=call_us(torch, lambda: i8.int8_wdot(x, q, scale)),
+                    library_call_us=call_us(torch, lambda: torch.matmul(
+                        x, dense)))
+            del q, scale, dense
+        # K6: the serving shape, ragged and contiguous
+        b, max_len, kv, heads, d = 8, 2048, LLAMA["kv"], LLAMA["heads"], \
+            LLAMA["d"]
+        k8, v8 = (torch.randint(-127, 128, (b, max_len, kv, d),
+                                generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((b, max_len, kv), generator=gen, device="cuda")
+                  * 0.02 + 1e-3 for _ in range(2))
+        lens = torch.tensor(np.linspace(129, 2047, b).astype(np.int64),
+                            device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, 1, heads, d), generator=gen, device="cuda",
+                            dtype=dtype)
+            for label, kw in (("ragged", dict(lengths=lens)),
+                              ("contiguous", dict(base=1500))):
+                got = i8.decode_attention_int8(q, k8, v8, ks, vs, **kw)
+                want = i8.decode_attention_int8_reference(
+                    q, k8, v8, ks, vs, kw.get("lengths"), kw.get("base", 0))
+                hold("decode_attention_int8", f"{label}/{dtype}", got, want,
+                     dtype == torch.float32)
+        ms = cuda_ms(torch, lambda: i8.decode_attention_int8(
+            q, k8, v8, ks, vs, lengths=lens))
+        plain = cuda_ms(torch, lambda: i8.decode_attention_int8_reference(
+            q, k8, v8, ks, vs, lens, 0), iters=5)
+        visible = int((lens + 1).sum())
+        b_ms, b_by = bound(4.0 * heads * d * visible,
+                           visible * kv * (2 * d + 8) + 2 * 2 * b * heads * d,
+                           "bfloat16")
+        report["decode_attention_int8"] = dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, visible_positions=visible)
+        del k8, v8, ks, vs
+        # K7: a decode round's write (row 7 past the cache, dropped) and a
+        # prefill stack, bytes equal to the plain version
+        kx, vx = (torch.randn((b, 1, kv, d), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        dec_lens = torch.tensor([0, 5, 129, 700, 1300, 2000, 2047, 2048],
+                                dtype=torch.int64, device="cuda")
+        outs = []
+        for _ in range(2):
+            outs.append([torch.zeros((b, max_len, kv, d), dtype=torch.int8,
+                                     device="cuda") for _ in range(2)]
+                        + [torch.ones((b, max_len, kv), device="cuda")
+                           for _ in range(2)])
+        i8.kv_quantize(kx, vx, *outs[0], lengths=dec_lens)
+        i8.kv_quantize_reference(kx, vx, *outs[1], dec_lens, 0)
+        checks["kv_quantize/decode"] = all(
+            same_bytes(torch, g, w) for g, w in zip(*outs))
+        del outs
+        layers = LLAMA["layers"]
+        kx, vx = (torch.randn((layers, 2048, kv, d), generator=gen,
+                              device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2))
+        got = i8.kv_quantize_rows(kx, vx)
+        ref_k, ref_v = i8.kv_rows_reference(kx), i8.kv_rows_reference(vx)
+        want = (ref_k[0], ref_v[0], ref_k[1], ref_v[1])
+        checks["kv_quantize/prefill"] = all(
+            same_bytes(torch, g, w) for g, w in zip(got, want))
+        max_err["kv_quantize"] = max(
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want))
+        ms = cuda_ms(torch, lambda: i8.kv_quantize_rows(kx, vx))
+        plain = cuda_ms(torch, lambda: (i8.kv_rows_reference(kx),
+                                        i8.kv_rows_reference(vx)), iters=5)
+        elems = 2 * kx.numel()
+        b_ms, b_by = bound(3.0 * elems, elems * (2 + 1) + elems // d * 4,
+                           "float32")
+        report["kv_quantize"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                     bound_ms=b_ms, bound_by=b_by)
+        del kx, vx, got, want, ref_k, ref_v
+    emit({"phase": "int8_kernels", "checks": checks, "max_abs_err": max_err,
+          **report})
+    if not all(checks.values()):
+        fail(f"an int8 serving kernel differs from its plain version: "
+             f"{[k for k, ok in checks.items() if not ok]}")
+    torch.cuda.empty_cache()
+    times = {"int8_wdot": report["int8_wdot 8x1024x32000"],
+             "decode_attention_int8": report["decode_attention_int8"],
+             "kv_quantize": report["kv_quantize"]}
+    return max_err, times
+
+
+def serve_int8(torch, np, fa, rng) -> dict:
+    """int8 serving: llama_350m's bf16 store through quantize_params,
+    served by a DecodeServer with the int8 KV cache (8 slots x 2048) on
+    the same 8-prompt burst as ``serve``; its launches must be the counts
+    the design gives (a prefill: flash_fwd once a layer, int8_wdot 7 times
+    a layer and once for the LM head, kv_quantize once; a decode round:
+    int8_wdot as a prefill, decode_attention_int8 and kv_quantize once a
+    layer).  A profiled request, then the prefix leg: a 1024-token prefix
+    served once, 8 prompts that extend it by 64-256 tokens (each must
+    extend it: 8 prefix hits) and one exact resubmission (a prompt hit),
+    the extensions' TTFT beside the same prompts on a server without the
+    cache.  Last, a 2-layer f32 model (head_dim 64) with int8 weights,
+    the int8 cache and the prefix cache, whose greedy streams must be
+    token-exact against generate with the same weights and cache dtype,
+    for extended and replayed prompts.  Returns the burst's launches."""
+    from parameter_server_distributed_tpu_torch.models import serving
+    from parameter_server_distributed_tpu_torch.models.generation import \
+        generate
+    from parameter_server_distributed_tpu_torch.models.quant import (
+        quantize_params, store_bytes)
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+    model = get_model("llama_350m", dtype="bf16")
+    params = quantize_params(model.init_params(0, device="cuda"))
+    torch.cuda.empty_cache()
+    as_is, dense_bytes = store_bytes(params)
+    vocab = model.config.vocab
+    prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+    srv = serving.DecodeServer(model, params, slots=8, max_len=2048,
+                               cache_dtype="int8", device="cuda")
+    cache = srv._cache
+    cache_bytes = {"codes": cache.k.numel() + cache.v.numel(),
+                   "scales": 4 * (cache.k_scale.numel()
+                                  + cache.v_scale.numel()),
+                   "bf16_equivalent": 2 * (cache.k.numel() + cache.v.numel())}
+    for n in sorted({min(serving._bucket(n), 2048) for n in PROMPT_LENS}):
+        srv.submit((prompts[0] * (n // len(prompts[0]) + 1))[:n - 2],
+                   max_new_tokens=2)
+        srv.run_to_completion()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    i8.reset_launches()
+    t0 = time.perf_counter()
+    ttft, gaps, rids = [], [], []
+    for p in prompts:
+        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
+        ttft.append(time.perf_counter() - t0)
+    while not srv.idle:
+        t1 = time.perf_counter()
+        srv.step()
+        gaps.append(time.perf_counter() - t1)
+    results = srv.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**fa.launches, **i8.launches}
+    layers, prefills, rounds = LLAMA["layers"], len(prompts), len(gaps)
+    per_forward = 7 * layers + 1
+    expected = {"flash_fwd": layers * prefills, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0,
+                "int8_wdot": per_forward * (prefills + rounds),
+                "decode_attention_int8": layers * rounds,
+                "kv_quantize": prefills + layers * rounds}
+    tokens = sum(len(results[r]) for r in rids)
+    emit({"phase": "serve_int8", "model": "llama_350m",
+          "dtype": "bfloat16, int8 weights, int8 KV cache", "slots": 8,
+          "max_len": 2048, "prompt_lens": list(PROMPT_LENS),
+          "requests_answered": len(results), "tokens_generated": tokens,
+          "wall_s": wall, "tokens_per_s": tokens / wall,
+          "ttft_p50_s": float(np.median(ttft)), "ttft_s": ttft,
+          "decode_rounds": rounds, "gap_p50_s": float(np.median(gaps)),
+          "gap_max_s": max(gaps),
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "store_bytes": as_is, "store_bytes_unquantized": dense_bytes,
+          "cache_bytes": cache_bytes, "launches": launches,
+          "expected_launches": expected})
+    if len(results) != prefills or any(
+            len(results[r]) != NEW_TOKENS
+            or not all(0 <= t < vocab for t in results[r]) for r in rids):
+        fail("int8 serving did not answer every request with in-vocab "
+             "tokens")
+    if launches != expected:
+        fail(f"int8 serving launches {launches} != {expected}")
+
+    def one_request():
+        srv.submit(prompts[-1], max_new_tokens=8)
+        srv.run_to_completion()
+
+    emit({"phase": "profile_int8", **profile_window(
+        torch, one_request, {"flash_ms": "flash_fwd", "wdot_ms": "wdot",
+                             "attention_ms": "decode_attn",
+                             "kv_quantize_ms": "kv_quantize"})})
+    del srv, cache
+    torch.cuda.empty_cache()
+
+    # the prefix leg
+    prefix = rng.integers(0, vocab, PREFIX_LEN).tolist()
+    exts = [prefix + rng.integers(0, vocab, n).tolist()
+            for n in PREFIX_SUFFIXES]
+
+    def burst(server):
+        t0 = time.perf_counter()
+        times = []
+        for p in exts:
+            server.submit(p, max_new_tokens=8)
+            times.append(time.perf_counter() - t0)
+        server.run_to_completion()
+        return times
+
+    psrv = serving.DecodeServer(model, params, slots=8, max_len=2048,
+                                cache_dtype="int8", prompt_cache=16,
+                                device="cuda")
+    psrv.submit(prefix, max_new_tokens=4)
+    psrv.run_to_completion()
+    fa.reset_launches()
+    i8.reset_launches()
+    cached = burst(psrv)
+    leg_launches = {**fa.launches, **i8.launches}
+    t1 = time.perf_counter()
+    psrv.submit(exts[3], max_new_tokens=8)
+    replay_s = time.perf_counter() - t1
+    psrv.run_to_completion()
+    stats = psrv.stats
+    del psrv
+    torch.cuda.empty_cache()
+    nsrv = serving.DecodeServer(model, params, slots=8, max_len=2048,
+                                cache_dtype="int8", device="cuda")
+    plain = burst(nsrv)
+    del nsrv
+    emit({"phase": "serve_int8_prefix", "prefix_len": PREFIX_LEN,
+          "suffix_lens": list(PREFIX_SUFFIXES),
+          "ttft_p50_s": float(np.median(cached)), "ttft_s": cached,
+          "no_cache_ttft_p50_s": float(np.median(plain)),
+          "no_cache_ttft_s": plain, "replay_ttft_s": replay_s,
+          "launches": leg_launches, "stats": stats})
+    if (stats["prefix_hits"] != 8 or stats["prompt_cache_hits"] != 1
+            or stats["prefill_tokens"] >= stats["prompt_tokens"]):
+        fail(f"the prefix leg's stats {stats}: want 8 prefix hits, 1 prompt "
+             f"hit and fewer prefill than prompt tokens")
+
+    # f32: int8 weights, int8 cache and the prefix cache, token-exact
+    # against generate
+    small = Transformer(TransformerConfig(
+        vocab=1024, d_model=256, n_heads=4, n_kv_heads=2, n_layers=2,
+        d_ff=512, max_seq=512, mlp_act="swiglu", dtype=torch.float32),
+        attention_fn=flash_attention_auto)          # head_dim 64
+    sparams = quantize_params(small.init_params(1, device="cuda"))
+    base = rng.integers(0, 1024, 128).tolist()
+    longer = base + rng.integers(0, 1024, 32).tolist()
+    sprompts = {"first": base, "extended": longer,
+                "extended_twice": longer + rng.integers(0, 1024, 40).tolist(),
+                "replayed": longer}
+    ssrv = serving.DecodeServer(small, sparams, slots=2, max_len=512,
+                                cache_dtype="int8", prompt_cache=8,
+                                device="cuda")
+    exact = {}
+    for label, p in sprompts.items():
+        rid = ssrv.submit(p, max_new_tokens=8)
+        got = ssrv.run_to_completion()[rid]
+        exact[label] = got == generate(small, sparams, [p], 8,
+                                       cache_dtype="int8")[0].tolist()
+    sstats = ssrv.stats
+    emit({"phase": "serve_int8_vs_generate_f32",
+          "model": "2-layer f32, head_dim 64, int8 weights and cache",
+          "token_exact": exact, "stats": sstats})
+    if not all(exact.values()) or sstats["prefix_hits"] != 2 \
+            or sstats["prompt_cache_hits"] != 1:
+        fail(f"f32 int8 DecodeServer streams differ from generate or "
+             f"missed the cache: {exact}, {sstats}")
+    return launches
+
+
+def cli_int8() -> None:
+    """The two CLIs with the int8 flags, as processes at once:
+    serve_main (--quant=int8 --kv-cache=int8 --prompt-cache=4
+    --fused-rounds=4) answering 2 JSONL requests and generate_main
+    (--quant=int8 --kv-cache=int8) answering one prompt; both exit 0."""
+    env = dict(os.environ, PYTHONPATH=HERE, PSDT_FLASH_ATTENTION="1")
+    reqs = [{"id": 1, "tokens": list(range(100, 400)), "max_new": 8},
+            {"id": 2, "prompt": "The parameter server " * 10, "max_new": 8}]
+    serve = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGE}.cli.serve_main",
+         "--model=llama_350m", "--slots=2", "--max-len=2048",
+         "--quant=int8", "--kv-cache=int8", "--prompt-cache=4",
+         "--fused-rounds=4"], cwd=HERE, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    gen = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGE}.cli.generate_main",
+         "--model=llama_350m", "--quant=int8", "--kv-cache=int8",
+         "--prompt=The parameter server", "--max-new=8"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = serve.communicate(
+            "".join(json.dumps(r) + "\n" for r in reqs), timeout=600)
+        g_out, g_err = gen.communicate(timeout=600)
+    finally:
+        for proc in (serve, gen):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = [json.loads(line) for line in out.splitlines() if line.strip()]
+    done = [line for line in lines if line.get("done")]
+    emit({"phase": "cli_int8", "serve_returncode": serve.returncode,
+          "done_lines": len(done), "serve_stderr_tail": err[-400:],
+          "generate_returncode": gen.returncode,
+          "generate_stdout": g_out[-200:], "generate_stderr_tail":
+          g_err[-400:]})
+    if serve.returncode != 0 or sorted(d["id"] for d in done) != [1, 2]:
+        fail(f"serve_main --quant=int8 answered {len(done)} of 2 requests "
+             f"(exit {serve.returncode})")
+    if gen.returncode != 0:
+        fail(f"generate_main --quant=int8 exited {gen.returncode}")
 
 
 def model_flops_per_step(model, batch: int, seq: int) -> float:
@@ -2535,6 +2934,8 @@ def main() -> int:
     update_t = time_updates(torch, fu, shapes, gen)
     da_err, da_t = check_device_apply(torch, np, shapes, gen)
     max_err.update(da_err)
+    i8_err, i8_t = check_int8_kernels(torch, np, gen)
+    max_err.update(i8_err)
     emit({"phase": "kernels_checked", "elapsed_s":
           time.perf_counter() - t_start})
 
@@ -2544,6 +2945,10 @@ def main() -> int:
     serve_fwd = serve(torch, np, fa, rng)
     torch.cuda.empty_cache()
     emit({"phase": "served", "elapsed_s": time.perf_counter() - t_start})
+    int8_launches = serve_int8(torch, np, fa, rng)
+    torch.cuda.empty_cache()
+    cli_int8()
+    emit({"phase": "served_int8", "elapsed_s": time.perf_counter() - t_start})
     train_launches = train(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
@@ -2570,7 +2975,10 @@ def main() -> int:
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
     # B=1), the others at the training shapes, the device close's at the
-    # llama_350m store; launches from the main paths' runs
+    # llama_350m store, int8_wdot at a decode round's LM head (M=8, K=1024,
+    # N=32000), decode_attention_int8 at the serving round (8 ragged rows
+    # of max_len 2048), kv_quantize at a 2048-token prefill stack;
+    # launches from the main paths' runs
     sources = {"flash_fwd": ("flash_fwd.cu", PALLAS + "flash_attention.py:86"),
                "flash_bwd_dq": ("flash_bwd.cu",
                                 PALLAS + "flash_attention.py:162"),
@@ -2581,8 +2989,11 @@ def main() -> int:
                                   PALLAS + "fused_update.py:46"),
                "fused_adam": ("fused_update.cu", PALLAS + "fused_update.py:53"),
                **{name: ("device_apply.cu", DEVICE_APPLY_REF + line)
-                  for name, line in DA_REPLACES.items()}}
+                  for name, line in DA_REPLACES.items()},
+               **{name: ("int8_serve.cu", INT8_REF + line)
+                  for name, line in INT8_REPLACES.items()}}
     by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
+                      "serve_int8": int8_launches.get(name, 0),
                       "train": train_launches.get(name, 0),
                       "ps_round": round_launches.get(name, 0),
                       "ps_device_round": device_launches.get(name, 0),
@@ -2593,7 +3004,7 @@ def main() -> int:
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
                                             if k != "flash_fwd"}, **update_t,
-             **da_t}
+             **da_t, **i8_t}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = times[name]
@@ -2605,8 +3016,12 @@ def main() -> int:
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
         kernels.append(entry)
-    if any(k["launches"] <= 0 or (k["name"] not in DA_REPLACES and
-                                  k["launches_by_path"]["ps_round"] <= 0)
+    # the device close's kernels run on the device-close paths only, the
+    # int8 serving kernels on serve_int8 only
+    if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and
+                                  k["launches_by_path"]["serve_int8"] <= 0)
+           or (k["name"] not in DA_REPLACES and k["name"] not in
+               INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            for k in kernels):
         fail(f"a kernel of the main paths never launched: {by_path}")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

@@ -3,12 +3,23 @@
     python -m parameter_server_distributed_tpu_torch.cli.serve_main \\
         --model=llama_350m [--dtype=bf16] [--seed=0] [--slots=8] \\
         [--max-len=2048] [--temperature=0.8 --top-k=40 --top-p=0.9] \\
-        [--eos=ID] [--default-max-new=64] [--device=cuda|cpu]
+        [--eos=ID] [--default-max-new=64] [--device=cuda|cpu] \\
+        [--ckpt=path.ckpt [--lora-alpha=A]] \\
+        [--scan-layers | --no-scan-layers] \\
+        [--quant=int8] [--kv-cache=int8] \\
+        [--prompt-cache=N]   # the radix prefix cache: repeated prompts
+                             # skip the prefill, shared prefixes forward
+                             # only their suffix (PSDT_PREFIX_CACHE_BYTES)
+        [--fused-rounds=N]   # up to N decode rounds per host decision
+                             # when no request waits (token-exact)
 
-Weights are fresh from ``--seed``.  The model runs on the CUDA card unless
-``--device=cpu`` asks for the CPU; with no card and no such request it
-exits with an error.  ``PSDT_FLASH_ATTENTION=1`` routes prefill attention
-through the flash kernel.
+Weights come from ``--ckpt`` (the host checkpoint format the PS writes;
+a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
+``--seed``.  ``--quant=int8`` quantizes them (models/quant.py) and
+``--kv-cache=int8`` the slot cache.  The model runs on the CUDA card
+unless ``--device=cpu`` asks for the CPU; with no card and no such
+request it exits with an error.  ``PSDT_FLASH_ATTENTION=1`` routes
+prefill attention through the flash kernel.
 
 Line protocol (JSONL on stdin/stdout), as the reference's pst-serve:
 
@@ -31,39 +42,33 @@ import sys
 import threading
 
 from ..config import parse_argv, require_flag_value
+from . import generate_main
 
 KNOWN_FLAGS = frozenset({
     "model", "dtype", "seed", "slots", "max-len", "temperature", "top-k",
-    "top-p", "eos", "default-max-new", "device", "help",
+    "top-p", "eos", "default-max-new", "device", "help", "ckpt",
+    "lora-alpha", "quant", "kv-cache", "prompt-cache", "fused-rounds",
+    "scan-layers", "no-scan-layers",
 })
 
+_SERVING_REST = "ROADMAP.md Queue 1, item 6 (serving, the rest)"
 # the reference's other pst-serve flags, and where each is planned
 UNPORTED_FLAGS = {
-    **dict.fromkeys(("ckpt", "ckpt-dir", "avg-last"),
-                    "checkpoint loading (ROADMAP.md Queue 1, serving: "
-                    "cli/serve_main.py and cli/generate_main.py)"),
-    **dict.fromkeys(("scan-layers", "no-scan-layers"),
-                    "the scanned layout flag (ROADMAP.md Queue 1, serving: "
-                    "cli/serve_main.py)"),
-    "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, other model families: "
-               "hf.py)",
-    "quant": "int8 weights (ROADMAP.md Queue 1, serving: models/quant.py)",
-    "kv-cache": "the int8 KV cache (ROADMAP.md Queue 1, serving)",
-    **dict.fromkeys(("lora-alpha", "draft-lora-alpha"),
-                    "LoRA merging (ROADMAP.md Queue 1, serving: "
-                    "models/lora.py)"),
-    "prompt-cache": "the radix prefix cache (ROADMAP.md Queue 1, serving)",
+    **dict.fromkeys(("ckpt-dir", "avg-last"),
+                    "sharded checkpoints (ROADMAP.md Queue 1, item 8, "
+                    "train_loop: checkpoint/sharded.py)"),
+    "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, item 7, other model "
+               "families: hf.py)",
     **dict.fromkeys(("draft-model", "draft-ckpt", "draft-seed", "draft-len",
-                     "no-adaptive-draft", "draft-cost-ratio"),
-                    "speculative decoding (ROADMAP.md Queue 1, serving)"),
-    "fused-rounds": "fused decode rounds in the CLI (ROADMAP.md Queue 1, "
-                    "serving: cli/serve_main.py)",
+                     "no-adaptive-draft", "draft-cost-ratio",
+                     "draft-lora-alpha"),
+                    f"speculative decoding ({_SERVING_REST})"),
     **dict.fromkeys(("follow", "subscriber-id"),
-                    "live weight publication (ROADMAP.md Queue 1, serving: "
-                    "fleet/decode.py)"),
+                    f"live weight publication ({_SERVING_REST}: "
+                    f"fleet/decode.py, swap_params)"),
     **dict.fromkeys(("serve-port", "coordinator", "server-id"),
-                    "decode fleet mode (ROADMAP.md Queue 1, serving: "
-                    "fleet/decode.py)"),
+                    f"decode fleet mode ({_SERVING_REST}: fleet/decode.py "
+                    f"and the coordinator's fleet registry)"),
 }
 
 
@@ -97,7 +102,6 @@ def main(argv: list[str] | None = None) -> int:
     if "help" in flags:
         print(__doc__)
         return 0
-    require_flag_value(argv, "--device", hint="cuda or cpu")
     unported = sorted(set(flags) & set(UNPORTED_FLAGS))
     if unported:
         raise SystemExit("; ".join(f"--{name} is not ported yet: "
@@ -107,20 +111,28 @@ def main(argv: list[str] | None = None) -> int:
     if unknown:
         raise SystemExit(f"unknown flag(s): {', '.join(sorted(unknown))}; "
                          f"--help lists the accepted flags")
+    # bare --fused-rounds would parse as 1 and silently turn off what was
+    # asked for
+    require_flag_value(argv, "--fused-rounds",
+                       hint="decode rounds per host decision, e.g. "
+                            "--fused-rounds=8")
+    generate_main.check_flags(argv, {k: v for k, v in flags.items()
+                                     if k in generate_main.KNOWN_FLAGS})
 
     from ..data.text import ByteTokenizer, require_vocab
     from ..device import resolve_device
-    from ..models.registry import get_model
+    from ..models.quant import quantize_params
     from ..models.serving import DecodeServer
 
     device = resolve_device(flags.get("device"))
-    name = flags.get("model", "small_lm")
-    model = get_model(name, dtype=flags.get("dtype", ""))
-    if not hasattr(model.config, "vocab"):
-        raise SystemExit(f"--model={name}: serving takes a language model")
+    model = generate_main.build_model(flags)
     seed = int(flags.get("seed", 0))
-    params = model.init_params(seed, device=device)
-    print(f"serving: {name} fresh weights from seed {seed} on {device}",
+    params, source = generate_main.load_params(flags, model, seed, device)
+    params = generate_main.match_layout(model, params)
+    if flags.get("quant"):
+        params = quantize_params(params)
+        source += " (int8 weights)"
+    print(f"serving: {flags.get('model', 'small_lm')} {source} on {device}",
           file=sys.stderr)
     tokenizer = ByteTokenizer()
     eos = int(flags["eos"]) if flags.get("eos") else None
@@ -131,8 +143,11 @@ def main(argv: list[str] | None = None) -> int:
         temperature=float(flags.get("temperature", "0.0")),
         top_k=int(flags.get("top-k", "0")),
         top_p=float(flags.get("top-p", "0.0")),
-        eos_id=eos, seed=seed, device=device)
+        eos_id=eos, seed=seed, device=device,
+        cache_dtype="int8" if flags.get("kv-cache") else "native",
+        prompt_cache=int(flags.get("prompt-cache", "0")))
     default_max_new = int(flags.get("default-max-new", "64"))
+    fused_rounds = int(flags.get("fused-rounds", "1"))
 
     in_q: "queue.Queue[tuple | None]" = queue.Queue()
     threading.Thread(target=_reader, args=(in_q,), daemon=True,
@@ -233,7 +248,10 @@ def main(argv: list[str] | None = None) -> int:
                 else:
                     pending.append(payload)
                 continue
-        emitted = srv.step()
+        # fuse rounds only when nothing waits for a slot: a pending
+        # request gets the next admission opportunity
+        emitted = (srv.step_many(fused_rounds)
+                   if fused_rounds > 1 and not pending else srv.step())
         done_now = set(srv.finished())
         for rid, token in emitted:
             _emit({"id": live[rid].get("id"), "token": int(token)})

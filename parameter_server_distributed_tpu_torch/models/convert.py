@@ -1,6 +1,8 @@
 """Parameter stores from numpy: the JAX package's parameters (a
 transformer's or an MLP's), converted with ``np.asarray``, become the
-port's store of torch tensors."""
+port's store of torch tensors.  A quantized leaf (the JAX package's
+``quantize_params`` QTensor) crosses as its ``(q, scale)`` numpy pair and
+becomes the port's :class:`~.quant.QTensor`."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from ..device import resolve_device
 from .mlp import MLP, MLPConfig
+from .quant import QTensor
 from .transformer import (Transformer, TransformerConfig, stack_layers,
                           unstack_layers)
 
@@ -31,10 +34,13 @@ def params_from_numpy(store: Mapping[str, np.ndarray],
     """Convert a numpy parameter store into the layout ``config`` names,
     in ``config.dtype``, on ``device`` (default: the card): a
     transformer's in the unrolled (``layer<i>/*``) or the stacked
-    (``blocks/*``) layout, or an MLP's (``layer<i>/w``, ``layer<i>/b``).
-    Raises on names or shapes the config does not expect."""
+    (``blocks/*``) layout, or an MLP's (``layer<i>/w``, ``layer<i>/b``);
+    a ``(q, scale)`` pair keeps its int8 codes and f32 scales.  Raises
+    on names or shapes the config does not expect."""
     dev = resolve_device(device)
-    params = {name: _tensor(value) for name, value in store.items()}
+    params = {name: QTensor(_tensor(value[0]), _tensor(value[1]))
+              if isinstance(value, (tuple, list)) else _tensor(value)
+              for name, value in store.items()}
     if isinstance(config, MLPConfig):
         expected = MLP(config.layer_sizes, config.dtype).param_shapes()
     else:
@@ -51,5 +57,6 @@ def params_from_numpy(store: Mapping[str, np.ndarray],
             if got[name] != expected[name])
         raise ValueError(f"store does not match the config "
                          f"(name/shape drift: {drift[:4]}...)")
-    return {name: value.to(device=dev, dtype=config.dtype)
+    return {name: value.to(dev) if isinstance(value, QTensor)
+            else value.to(device=dev, dtype=config.dtype)
             for name, value in params.items()}

@@ -14,15 +14,19 @@ Prefill pads prompts up to a power-of-two bucket (capped at max_len).
 Pad positions write garbage K/V beyond the row's real length, which the
 ragged mask hides and later decode steps overwrite.
 
-The reference's compiled prefill/splice/step runners are plain methods
-here, and the cache is written in place.  Speculative decoding, a mesh,
-the int8 cache and the prompt cache are not ported yet; asking for one
-raises and names its ROADMAP item.
+The reference's compiled prefill/splice/extend/step runners are plain
+methods here, and the cache is written in place.  ``cache_dtype="int8"``
+quantizes the slot cache (generation.QuantKVCache), and a
+models/quant.py ``quantize_params`` store serves unchanged.
+``prompt_cache > 0`` turns on the radix prefix cache
+(models/prefix_tree.py).  Speculative decoding and a mesh are not ported
+yet; asking for one raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Mapping
 
@@ -31,13 +35,15 @@ import torch
 
 from ..device import check_on_device, resolve_device
 from ..obs import stats as obs_stats
-from .generation import (ROADMAP_INT8_CACHE, check_position_budget,
-                         check_token_ids, decode_block, init_cache,
-                         sample_token, sample_token_rowwise)
+from .generation import (KVCache, QuantKVCache, _kv_quantize,
+                         check_position_budget, check_token_ids,
+                         decode_block, init_cache, sample_token,
+                         sample_token_rowwise)
+from .prefix_tree import PrefixTree, RowRef
 from .transformer import ROADMAP_SPMD, Transformer
 
-ROADMAP_SPECULATIVE = "ROADMAP.md Queue 1, serving: speculative decoding"
-ROADMAP_PROMPT_CACHE = "ROADMAP.md Queue 1, serving: the radix prefix cache"
+ROADMAP_SPECULATIVE = ("ROADMAP.md Queue 1, item 6 (serving, the rest): "
+                       "speculative decoding and beam search")
 
 
 @dataclasses.dataclass
@@ -56,6 +62,13 @@ def _bucket(n: int, lo: int = 16) -> int:
     return b
 
 
+def _row_nbytes(row) -> int:
+    """Device bytes pinned by one cached K/V row (native: (k, v); int8:
+    (k8, v8, k_scale, v_scale)): what the radix tree's byte-accounted LRU
+    charges against its budget."""
+    return sum(t.numel() * t.element_size() for t in row)
+
+
 class DecodeServer:
     """Slot-based continuous-batching decoder.
 
@@ -68,7 +81,17 @@ class DecodeServer:
 
     Runs on ``device`` (default: the card); ``params`` must lie there.
     ``eos_id`` frees a slot early; a freed slot is reused by the next
-    ``submit``."""
+    ``submit``.
+
+    ``prompt_cache`` > 0 turns on the radix-tree prefix cache
+    (models/prefix_tree.py): admitted prompts' prefill results (the
+    final-position logits and the prompt's K/V row) are indexed token by
+    token, so an identical resubmission skips the prefill and only
+    splices, while a prompt sharing any cached prefix (the interior of a
+    longer cached prompt included) forwards only its suffix
+    (:meth:`_extend`).  Cached rows pin device memory, bounded by
+    byte-accounted LRU over tree nodes: ``prefix_cache_bytes`` (default
+    ``PSDT_PREFIX_CACHE_BYTES``, 256 MiB)."""
 
     def __init__(self, model: Transformer, params: Mapping[str, torch.Tensor],
                  slots: int = 8, max_len: int = 2048, *,
@@ -76,20 +99,14 @@ class DecodeServer:
                  top_p: float = 0.0, eos_id: int | None = None,
                  cache_dtype: str = "native", seed: int = 0, mesh=None,
                  draft: Transformer | None = None, prompt_cache: int = 0,
-                 device=None):
+                 prefix_cache_bytes: int | None = None, device=None):
         if draft is not None:
             raise NotImplementedError(f"draft=: {ROADMAP_SPECULATIVE}")
         if mesh is not None:
             raise NotImplementedError(f"mesh=: {ROADMAP_SPMD}")
-        if cache_dtype == "int8":
-            raise NotImplementedError(
-                f"cache_dtype='int8': {ROADMAP_INT8_CACHE}")
         if prompt_cache < 0:
             raise ValueError(f"prompt_cache must be >= 0, "
                              f"got {prompt_cache}")
-        if prompt_cache:
-            raise NotImplementedError(
-                f"prompt_cache > 0: {ROADMAP_PROMPT_CACHE}")
         self.device = resolve_device(device)
         check_on_device(params, self.device)
         self.model = model
@@ -110,12 +127,24 @@ class DecodeServer:
         self._n_emitted = 0
         self._n_requests = 0
         self._n_retired = 0
+        # tokens forwarded in a prompt phase (exact hit: 0, extension: the
+        # suffix, miss: all) against prompt tokens admitted
         self._prefill_tokens = 0
         self._prompt_tokens = 0
         self._obs_round = obs_stats.histogram("serve.round_s")
         self._obs_tokens = obs_stats.counter("serve.tokens")
         self._obs_active = obs_stats.gauge("serve.active_slots")
         self._obs_rate = obs_stats.gauge("serve.tokens_per_s")
+        # the radix prefix cache: exact hits replay, a shared prefix
+        # seeds a suffix-only extension, byte-accounted LRU eviction
+        self.prompt_cache_size = prompt_cache
+        budget = (int(prefix_cache_bytes) if prefix_cache_bytes is not None
+                  else int(os.environ.get("PSDT_PREFIX_CACHE_BYTES",
+                                          "268435456")))
+        self._prefix_tree = PrefixTree(budget) if prompt_cache else None
+        self._prompt_hits = 0
+        self._prefix_hits = 0
+        self._obs_prefix = obs_stats.counter("serve.prefix_hits")
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._temperature = temperature
         self._top_k = top_k
@@ -143,26 +172,112 @@ class DecodeServer:
                 return i
         return None
 
+    def prefix_fingerprint(self) -> bytes:
+        """Compact prefix fingerprint of the radix cache (packed chained
+        CRC32 block hashes, prefix_tree.block_hashes); empty when the
+        cache is off.  Safe to read from another thread: an immutable
+        snapshot the decode thread swaps in after each tree change."""
+        tree = self._prefix_tree
+        return tree.fingerprint if tree is not None else b""
+
     # ------------------------------------------------------------ prefill
+    @property
+    def _int8(self) -> bool:
+        return isinstance(self._cache, QuantKVCache)
+
     def _prefill(self, prompt: np.ndarray, bucket: int):
         """Forward the bucket-padded prompt; returns the last real
-        position's logits [vocab] and the prompt's per-layer (k, v)
-        [1, bucket, KV, D].  Only that one position goes through the LM
-        head."""
+        position's logits [vocab] and the prompt's K/V row: (k, v) [L,
+        bucket, KV, D] in the model dtype, or (k8, v8, k_scale, v_scale)
+        quantized already when the slot cache is int8.  Only the last
+        real position goes through the LM head."""
         padded = torch.zeros((1, bucket), dtype=torch.int32,
                              device=self.device)
         padded[0, :len(prompt)] = torch.as_tensor(prompt, device=self.device)
         h, kvs, _ = self.model._forward(self.params, padded, collect_kv=True)
         last = self.model.final_logits(self.params, h[:, len(prompt) - 1])
-        return last[0], kvs
+        k = torch.stack([k[0] for k, _ in kvs])
+        v = torch.stack([v[0] for _, v in kvs])
+        return last[0], (_kv_quantize(k, v) if self._int8 else (k, v))
 
-    def _splice(self, kvs, slot: int) -> None:
-        """Write one prefilled row's K/V into the slot's cache rows, in
-        place."""
-        for i, (k, v) in enumerate(kvs):
-            width = k.shape[1]
-            self._cache.k[i, slot, :width] = k[0]
-            self._cache.v[i, slot, :width] = v[0]
+    def _splice(self, row, slot: int) -> None:
+        """Write one row's K/V (and scales) into the slot's cache rows, in
+        place; the row's own width (a radix-served row is prefix bucket
+        plus suffix bucket wide)."""
+        width = row[0].shape[1]
+        cache = self._cache
+        dsts = ((cache.k, cache.v, cache.k_scale, cache.v_scale)
+                if self._int8 else (cache.k, cache.v))
+        for dst, src in zip(dsts, row):
+            dst[:, slot, :width] = src
+
+    def _extend(self, pre_row, suffix: np.ndarray, prefix_len: int,
+                sbucket: int):
+        """Extend a cached prefix row by forwarding only the suffix tokens
+        against it: a ``[1, sbucket]`` ragged ``decode_block`` against a
+        one-row cache of width prefix bucket + ``sbucket`` seeded with the
+        prefix K/V, so the suffix's K/V and logits are what decoding those
+        tokens one round at a time would compute.  Pad positions past the
+        real suffix write garbage beyond the frontier, masked and later
+        overwritten like prefill pad positions.  Returns the last real
+        suffix position's logits and the combined row."""
+        layers, pbucket, heads, dim = pre_row[0].shape
+        total = pbucket + sbucket
+        shape = (layers, 1, total, heads, dim)
+        dev = self.device
+        if self._int8:
+            cache = QuantKVCache(
+                k=torch.zeros(shape, dtype=torch.int8, device=dev),
+                v=torch.zeros(shape, dtype=torch.int8, device=dev),
+                k_scale=torch.ones(shape[:-1], device=dev),
+                v_scale=torch.ones(shape[:-1], device=dev), length=0)
+            dsts = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+        else:
+            dtype = self.model.config.dtype
+            cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                            v=torch.zeros(shape, dtype=dtype, device=dev),
+                            length=0)
+            dsts = (cache.k, cache.v)
+        for dst, src in zip(dsts, pre_row):
+            dst[:, 0, :pbucket] = src
+        padded = torch.zeros((1, sbucket), dtype=torch.int32, device=dev)
+        padded[0, :len(suffix)] = torch.as_tensor(suffix, device=dev)
+        logits, _ = decode_block(
+            self.model, self.params, padded, cache,
+            lengths=torch.tensor([prefix_len], dtype=torch.int64,
+                                 device=dev))
+        return logits[0, len(suffix) - 1], tuple(d[:, 0] for d in dsts)
+
+    def _radix_extend(self, prompt: np.ndarray, node, matched: int):
+        """Shared-prefix extension from the deepest cached ancestor:
+        forward only the suffix past the ``matched``-token tree prefix
+        against the covering node's row (:meth:`_extend`).  Returns (last
+        logits, combined row), or None (no usable prefix, or the combined
+        row would overflow the slot cache: the caller prefills in full).
+        A prompt that is itself a cached path (an interior split node, no
+        replayable logits) caps the prefix at ``len - 1`` and extends one
+        token."""
+        real_len = len(prompt)
+        plen = min(matched, real_len - 1)
+        if plen <= 0 or node.handle is None:
+            return None
+        pre_row = node.handle.row
+        pbucket = int(pre_row[0].shape[1])
+        sbucket = _bucket(real_len - plen)
+        if pbucket + sbucket > self.max_len:
+            return None
+        last, row = self._extend(pre_row, prompt[plen:], plen, sbucket)
+        self._prefix_tree.touch(node)    # the whole ancestor path is hot
+        self._prefill_tokens += real_len - plen
+        return last, row
+
+    def _admit_to_tree(self, pkey: tuple, last, row) -> None:
+        """Insert an admitted prompt's row into the radix tree (an edge
+        split shares the descendant's row: no device copy) and run the
+        byte-budget LRU eviction pass."""
+        tree = self._prefix_tree
+        tree.insert(pkey, last, RowRef(row, _row_nbytes(row)))
+        tree.evict_over_budget()
 
     # ------------------------------------------------------------- submit
     @torch.inference_mode()
@@ -190,14 +305,37 @@ class DecodeServer:
                 f"prompt {real_len} + max_new {max_new_tokens} exceeds "
                 f"cache max_len {self.max_len}")
         check_position_budget(self.model, real_len, max_new_tokens)
-        bucket = min(_bucket(real_len), self.max_len)
-        last, kvs = self._prefill(prompt, bucket)
-        self._prefill_tokens += real_len
+        tree = self._prefix_tree
+        pkey = tuple(int(t) for t in prompt) if tree is not None else None
+        hit, anc, matched = None, None, 0
+        if tree is not None:
+            anc, matched, partial = tree.lookup(pkey)
+            if matched == real_len and not partial and anc.last is not None:
+                hit = anc   # a whole-prompt node: replayable logits + row
+        if hit is not None:
+            tree.touch(hit)     # the whole ancestor path, not one entry
+            self._prompt_hits += 1
+            last, row = hit.last, hit.handle.row
+        else:
+            extended = (self._radix_extend(prompt, anc, matched)
+                        if tree is not None else None)
+            if extended is not None:
+                # only the suffix ran a forward; the combined row splices
+                # under its own (wider) width
+                last, row = extended
+                self._prefix_hits += 1
+                self._obs_prefix.add()
+            else:
+                last, row = self._prefill(
+                    prompt, min(_bucket(real_len), self.max_len))
+                self._prefill_tokens += real_len
+            if tree is not None:
+                self._admit_to_tree(pkey, last, row)
         self._prompt_tokens += real_len
         req_temp = self._temperature if temperature is None else temperature
         first = int(sample_token(last[None], self._gen, req_temp,
                                  self._top_k, self._top_p)[0])
-        self._splice(kvs, slot)
+        self._splice(row, slot)
         rid = self._next_id
         self._next_id += 1
         self._n_requests += 1
@@ -310,6 +448,16 @@ class DecodeServer:
                 or (self.eos_id is not None and token == self.eos_id)
                 or token in entry.stop)
 
+    def cancel(self, request_id: int) -> bool:
+        """Free an in-flight request's slot without recording a result
+        (the client is gone).  The lane decodes garbage until reused,
+        like a retired lane.  False when the id is not in flight."""
+        for i, entry in enumerate(self._slot):
+            if entry is not None and entry.request_id == request_id:
+                self._slot[i] = None
+                return True
+        return False
+
     def _retire(self, slot: int) -> None:
         entry = self._slot[slot]
         self._results[entry.request_id] = entry.tokens
@@ -320,15 +468,23 @@ class DecodeServer:
 
     @property
     def stats(self) -> dict:
-        """Serving counters since construction."""
-        return {
+        """Serving counters since construction; with the prompt cache on,
+        its hits, extensions and the tree's nodes, bytes and evictions."""
+        out = {
             "steps": self._n_steps,
             "tokens_emitted": self._n_emitted,
             "requests_admitted": self._n_requests,
             "requests_completed": self._n_retired,
-            "prefill_tokens": self._prefill_tokens,
-            "prompt_tokens": self._prompt_tokens,
         }
+        if self.prompt_cache_size:
+            out["prompt_cache_hits"] = self._prompt_hits
+            out["prefix_hits"] = self._prefix_hits
+            out["prefix_cache_nodes"] = self._prefix_tree.nodes
+            out["prefix_cache_bytes"] = self._prefix_tree.bytes
+            out["prefix_evictions"] = self._prefix_tree.evictions
+        out["prefill_tokens"] = self._prefill_tokens
+        out["prompt_tokens"] = self._prompt_tokens
+        return out
 
     # ------------------------------------------------------------ result
     def peek(self, request_id: int) -> list[int]:

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ..device import resolve_device
+from .quant import QTensor, is_quantized, wdot
 
 Tensor = torch.Tensor
 
@@ -133,19 +134,22 @@ def _dot(x: Tensor, w: Tensor) -> Tensor:
     return torch.matmul(x, w)
 
 
-def _dot_f32(x: Tensor, w: Tensor) -> Tensor:
+def _dot_f32(x: Tensor, w: Tensor | QTensor) -> Tensor:
     """x @ w as an f32 result with no rounding to bf16 on the way (bf16
-    products are exact in f32)."""
-    return torch.matmul(x.float(), w.float())
+    products are exact in f32); an int8 QTensor ``w`` goes through
+    :func:`models.quant.wdot`, the f32 product scaled per channel."""
+    return wdot(x, w)
 
 
-def _proj(x: Tensor, w: Tensor, b: Tensor | None,
+def _proj(x: Tensor, w: Tensor | QTensor, b: Tensor | None,
           dtype: torch.dtype) -> Tensor:
     """Projection (+ bias) cast once to ``dtype``: the bias is added to
     the f32 product before the one cast, as in the reference."""
-    if b is None:
-        return _dot(x, w).to(dtype)
-    return (_dot_f32(x, w) + b.float()).to(dtype)
+    if b is not None:
+        return (_dot_f32(x, w) + b.float()).to(dtype)
+    if isinstance(w, QTensor):
+        return _dot_f32(x, w).to(dtype)
+    return _dot(x, w).to(dtype)
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
@@ -425,7 +429,7 @@ class Transformer:
         ff = _proj(x, params[f"{prefix}/mlp/w1"],
                    params[f"{prefix}/mlp/b1"] if c.bias else None, c.dtype)
         if c.mlp_act == "swiglu":
-            up = _dot(x, params[f"{prefix}/mlp/w3"]).to(c.dtype)
+            up = _proj(x, params[f"{prefix}/mlp/w3"], None, c.dtype)
             ff = F.silu(ff) * up
         else:
             ff = F.gelu(ff, approximate="tanh")
@@ -517,6 +521,10 @@ class Transformer:
     def loss(self, params: Mapping[str, Tensor], batch) -> Tensor:
         """Mean next-token cross-entropy (f32 scalar).  batch: [B, S]
         integer tokens (or a (tokens,) tuple)."""
+        if is_quantized(params):
+            raise ValueError("training on an int8 (quantize_params) store is "
+                             "not supported: quantization is a post-training "
+                             "serving transform")
         tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
         # run the full sequence and drop the last position's logits
         h, _, aux = self._forward(params, tokens, collect_kv=False)
@@ -561,7 +569,8 @@ class Transformer:
 
 def stack_layers(params: Mapping[str, Tensor], n_layers: int) -> dict:
     """Unrolled store (``layer<i>/<suffix>``) -> stacked ``blocks/<suffix>``
-    with a leading [L].  Dense layers only."""
+    with a leading [L] (a QTensor's codes and scales stacked alike).
+    Dense layers only."""
     out: dict = {}
     by_suffix: dict[str, list] = {}
     for i in range(n_layers):
@@ -574,7 +583,12 @@ def stack_layers(params: Mapping[str, Tensor], n_layers: int) -> dict:
             raise ValueError(
                 f"suffix {suffix!r} present in {len(values)}/{n_layers} "
                 f"layers — stacking requires homogeneous blocks")
-        out[f"blocks/{suffix}"] = torch.stack(values)
+        if isinstance(values[0], QTensor):
+            out[f"blocks/{suffix}"] = QTensor(
+                torch.stack([v.q for v in values]),
+                torch.stack([v.scale for v in values]))
+        else:
+            out[f"blocks/{suffix}"] = torch.stack(values)
     for name, value in params.items():
         if not name.startswith("layer"):
             out[name] = value

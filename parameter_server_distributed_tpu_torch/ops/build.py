@@ -26,14 +26,16 @@ import time
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build", "torch_kernels")
-SOURCES = ("flash_fwd", "flash_bwd", "fused_update", "device_apply")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_update", "device_apply",
+           "int8_serve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source beyond NVCC_FLAGS: the PS close's kernels are held
-# to the host numpy optimizers bit for bit, so every operation rounds on
-# its own (no contraction into FMAs, IEEE divide and sqrt, denormals kept)
-EXTRA_FLAGS = {"device_apply": ("--fmad=false", "-prec-div=true",
-                                "-prec-sqrt=true", "-ftz=false")}
+# to the host numpy optimizers bit for bit, and the KV quantizer to its
+# plain version byte for byte, so every operation rounds on its own (no
+# contraction into FMAs, IEEE divide and sqrt, denormals kept)
+_EXACT = ("--fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false")
+EXTRA_FLAGS = {"device_apply": _EXACT, "int8_serve": _EXACT}
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.M)
 

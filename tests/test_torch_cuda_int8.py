@@ -1,0 +1,198 @@
+"""The int8 serving kernels on the card (csrc/int8_serve.cu through
+ops/int8_serve.py) against their plain PyTorch versions on the same
+inputs: K5 ``int8_wdot`` and K6 ``decode_attention_int8`` in f32 within
+rtol 2e-5, atol 2e-5 (tests/test_quant.py's tolerance for wdot) and in
+bf16 within 2^-7 of the output's largest magnitude (bf16 rows above 16
+with aligned 16-byte chunks take K5's tensor-core tile); K7 ``kv_quantize``
+byte for byte.  Marked ``cuda``; skips without a card.  On one, run
+``python -m pytest --noconftest tests/test_torch_cuda_int8.py -m cuda``.
+Imports neither ``jax`` nor the JAX package.  Inputs are seeded with
+numpy; odd sizes reach the kernels' ragged edges."""
+
+import numpy as np
+import pytest
+import torch
+
+from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, dev, scale=1.0):
+    return torch.from_numpy(
+        (rng.standard_normal(shape) * scale).astype(np.float32)).to(
+            device=dev, dtype=dtype)
+
+
+def _weights(rng, k, n, dev):
+    q = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+    scale = torch.from_numpy(
+        (rng.random(n) * 1e-3 + 1e-4).astype(np.float32))
+    return q.to(dev), scale.to(dev)
+
+
+def _close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 2.0 ** -7 * want.float().abs().max().item(), err
+
+
+def _same(a, b):
+    return (a.shape == b.shape
+            and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 48, 33), (3, 1024, 256),
+                                   (8, 2816, 1024), (16, 200, 130),
+                                   (17, 1024, 256), (200, 300, 97),
+                                   (130, 104, 144), (2048, 1024, 2816)])
+def test_int8_wdot_matches_plain(card, dtype, m, k, n):
+    rng = np.random.default_rng(m * 7 + n)
+    x = _randn(rng, (m, k), dtype, card)
+    q, scale = _weights(rng, k, n, card)
+    before = i8.launches["int8_wdot"]
+    got = i8.int8_wdot(x, q, scale)
+    torch.cuda.synchronize()
+    assert i8.launches["int8_wdot"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    _close(got, i8.int8_wdot_reference(x, q, scale), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [96, 1024, 2816])
+def test_int8_wdot_rows_do_not_depend_on_the_batch(card, k):
+    """A row's product is the same bits whichever shape computes it (the
+    skinny one up to 16 rows, the tiled one above), so a prefill, an
+    extension and a decode round agree on a shared row."""
+    rng = np.random.default_rng(k)
+    x = _randn(rng, (70, k), torch.float32, card)
+    q, scale = _weights(rng, k, 300, card)
+    full = i8.int8_wdot(x, q, scale)
+    for rows in (1, 5, 16):
+        assert _same(i8.int8_wdot(x[:rows], q, scale), full[:rows])
+    assert _same(i8.int8_wdot(x[40:57], q, scale), full[40:57])
+
+
+def _cache(rng, b, max_len, kv, d, dev):
+    k8 = torch.from_numpy(rng.integers(-127, 128, (b, max_len, kv, d))
+                          .astype(np.int8)).to(dev)
+    v8 = torch.from_numpy(rng.integers(-127, 128, (b, max_len, kv, d))
+                          .astype(np.int8)).to(dev)
+    ks = torch.from_numpy((rng.random((b, max_len, kv)) * 0.02 + 1e-3)
+                          .astype(np.float32)).to(dev)
+    vs = torch.from_numpy((rng.random((b, max_len, kv)) * 0.02 + 1e-3)
+                          .astype(np.float32)).to(dev)
+    return k8, v8, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,d,max_len", [(8, 1, 16, 4, 64, 2048),
+                                                (2, 5, 4, 2, 12, 40),
+                                                (3, 16, 8, 8, 128, 96)])
+@pytest.mark.parametrize("ragged", [True, False])
+def test_decode_attention_int8_matches_plain(card, dtype, b, t, h, kv, d,
+                                             max_len, ragged):
+    rng = np.random.default_rng(b * 100 + d)
+    q = _randn(rng, (b, t, h, d), dtype, card)
+    cache = _cache(rng, b, max_len, kv, d, card)
+    if ragged:
+        # limits from 0 to past the cache (a retired lane keeps going)
+        lens = rng.integers(0, max_len, b)
+        lens[0] = max_len + 3
+        lengths = torch.from_numpy(lens.astype(np.int64)).to(card)
+        base = 0
+    else:
+        lengths, base = None, max_len // 3
+    before = i8.launches["decode_attention_int8"]
+    got = i8.decode_attention_int8(q, *cache, lengths=lengths, base=base)
+    torch.cuda.synchronize()
+    assert i8.launches["decode_attention_int8"] == before + 1
+    want = i8.decode_attention_int8_reference(q, *cache, lengths, base)
+    assert got.dtype == dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_decode_attention_int8_reads_nothing_past_the_limit(card):
+    """Garbage (NaN scales) past each row's limit leaves the result as
+    it was."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 3, 4, 16), torch.float32, card)
+    k8, v8, ks, vs = _cache(rng, 2, 32, 2, 16, card)
+    lengths = torch.tensor([5, 20], dtype=torch.int64, device=card)
+    clean = i8.decode_attention_int8(q, k8, v8, ks, vs, lengths=lengths)
+    ks2, vs2 = ks.clone(), vs.clone()
+    ks2[0, 8:] = float("nan")
+    vs2[1, 23:] = float("nan")
+    dirty = i8.decode_attention_int8(q, k8, v8, ks2, vs2, lengths=lengths)
+    assert _same(clean, dirty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ragged", [True, False])
+def test_kv_quantize_bytes_equal_plain(card, dtype, ragged):
+    rng = np.random.default_rng(int(ragged))
+    b, t, kv, d, max_len = 4, 3, 2, 64, 10
+    k = _randn(rng, (b, t, kv, d), dtype, card)
+    v = _randn(rng, (b, t, kv, d), dtype, card, scale=3.0)
+    k[1, 0, 1] = 0.0                              # a zero row: scale 1
+    v[2, 2, 0, :3] = torch.tensor([127.0, 2.5, -3.5])  # scale 1: ties
+    if ragged:
+        lengths = torch.tensor([0, 7, 8, 12], dtype=torch.int64, device=card)
+        base = 0
+    else:
+        lengths, base = None, 8                   # the last lands past
+    outs = [[torch.full((b, max_len, kv, d), 9, dtype=torch.int8,
+                        device=card) for _ in range(2)]
+            + [torch.full((b, max_len, kv), 7.0, device=card)
+               for _ in range(2)] for _ in range(2)]
+    before = i8.launches["kv_quantize"]
+    i8.kv_quantize(k, v, *outs[0], lengths=lengths, base=base)
+    torch.cuda.synchronize()
+    assert i8.launches["kv_quantize"] == before + 1
+    i8.kv_quantize_reference(k, v, *outs[1], lengths, base)
+    for got, want in zip(*outs):
+        assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quantize_rows_bytes_equal_plain(card, dtype):
+    rng = np.random.default_rng(3)
+    k = _randn(rng, (3, 2048, 4, 64), dtype, card)
+    v = _randn(rng, (3, 2048, 4, 64), dtype, card, scale=0.01)
+    v[0, 5] = 0.0
+    got = i8.kv_quantize_rows(k, v)
+    want = (*i8.kv_rows_reference(k)[:1], *i8.kv_rows_reference(v)[:1],
+            i8.kv_rows_reference(k)[1], i8.kv_rows_reference(v)[1])
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q, scale = _weights(np.random.default_rng(0), 8, 4, card)
+    with pytest.raises(ValueError, match="int8_wdot"):
+        i8.int8_wdot(torch.ones(2, 8, dtype=torch.float16, device=card), q,
+                     scale)
+    with pytest.raises(ValueError, match="one cuda device"):
+        i8.int8_wdot(torch.ones(2, 8), q, scale)
+    k8 = torch.zeros(1, 4, 1, 6, dtype=torch.int8, device=card)
+    s = torch.ones(1, 4, 1, device=card)
+    with pytest.raises(ValueError, match="decode_attention_int8"):
+        i8.decode_attention_int8(torch.ones(1, 1, 1, 6, device=card), k8,
+                                 k8, s, s)

@@ -137,6 +137,12 @@ def test_rowwise_sampling_greedy_rows_and_distribution():
 
 
 def test_int8_cache_raises(pair):
+    """The int8 cache is ported (tests/test_torch_int8_cache.py holds it
+    against the JAX package's): init_cache builds it, int8 codes with
+    unit scales; a cache dtype neither native nor int8 raises."""
     _, _, pm, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.init_cache(pm, 1, 8, "int8", device="cpu")
+    cache = tg.init_cache(pm, 1, 8, "int8", device="cpu")
+    assert isinstance(cache, tg.QuantKVCache) and cache.max_len == 8
+    assert cache.k.dtype == torch.int8 and bool((cache.v_scale == 1).all())
+    with pytest.raises(ValueError, match="cache_dtype"):
+        tg.init_cache(pm, 1, 8, "fp8", device="cpu")

@@ -79,6 +79,16 @@ def test_port_imports_and_serves_with_jax_blocked():
                            slots=1, max_len=32, device="cpu")
         rid = srv.submit([1, 2, 3], max_new_tokens=4)
         assert len(srv.run_to_completion()[rid]) == 4
+        # int8 weights, the int8 cache and the prefix cache
+        from parameter_server_distributed_tpu_torch.models.quant import \
+            quantize_params
+        srv = DecodeServer(model, quantize_params(model.init_params(
+            0, device="cpu")), slots=1, max_len=32, device="cpu",
+            cache_dtype="int8", prompt_cache=2)
+        for prompt in ([1, 2, 3], [1, 2, 3, 4]):
+            rid = srv.submit(prompt, max_new_tokens=4)
+            assert len(srv.run_to_completion()[rid]) == 4
+        assert srv.stats["prefix_hits"] == 1
         # one training round: worker step, then the PS apply
         from parameter_server_distributed_tpu_torch.async_sgd import \\
             device_optimizer

@@ -136,11 +136,17 @@ def test_stats_and_unported_options(pair):
     assert srv.stats == {"steps": 2, "tokens_emitted": 2,
                          "requests_admitted": 1, "requests_completed": 1,
                          "prefill_tokens": 3, "prompt_tokens": 3}
-    for kw in (dict(draft=pm), dict(mesh=object()),
-               dict(cache_dtype="int8"), dict(prompt_cache=4)):
+    for kw in (dict(draft=pm), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.DecodeServer(pm, params, slots=1, max_len=16, device="cpu",
                             **kw)
+    # the int8 cache and the prompt cache are ported
+    # (tests/test_torch_prefix_serving.py holds them against the JAX
+    # server); the prompt cache adds its keys to the stats
+    srv = ts.DecodeServer(pm, params, slots=1, max_len=16, device="cpu",
+                          cache_dtype="int8", prompt_cache=4)
+    assert srv.stats["prompt_cache_hits"] == 0
+    assert srv.stats["prefix_cache_nodes"] == 0
 
 
 def test_serve_main_jsonl_on_cpu(monkeypatch, capsys):
@@ -168,7 +174,8 @@ def test_serve_main_jsonl_on_cpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag,needle", [("--draft-model=tiny_lm",
                                           "speculative"),
-                                         ("--quant=int8", "not ported"),
+                                         ("--follow=127.0.0.1:1",
+                                          "not ported"),
                                          ("--bogus=1", "unknown flag")])
 def test_serve_main_rejects_flags(flag, needle):
     with pytest.raises(SystemExit, match=needle):
