@@ -249,7 +249,8 @@ def ptxas_report(log: str) -> dict[str, str]:
 def tensor_core_counts(build) -> dict:
     """Tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): HGMMA for wgmma, HMMA for mma.sync, per source
-    and per kernel (its name and head_dim, summed over types)."""
+    and per kernel (its name and head_dim, summed over types), each
+    kernel's by instruction."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = {}
     for name in build.SOURCES:
@@ -260,12 +261,12 @@ def tensor_core_counts(build) -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 kernel = kernel_label(line.split("Function :")[1].strip())
-                by_kernel.setdefault(kernel, 0)
+                by_kernel.setdefault(kernel, {"HGMMA": 0, "HMMA": 0})
                 continue
             op = re.search(r"\b(HGMMA|HMMA)\b", line)
             if op and kernel:
                 totals[op.group(1)] += 1
-                by_kernel[kernel] += 1
+                by_kernel[kernel][op.group(1)] += 1
         out[name] = {**totals, "by_kernel": by_kernel}
     return out
 
@@ -919,9 +920,15 @@ INT8_REF = "parameter_server_distributed_tpu/models/"
 INT8_REPLACES = {"int8_wdot": "quant.py:106",
                  "decode_attention_int8": "generation.py:224",
                  "kv_quantize": "generation.py:79"}
-# llama_350m's (K, N) products: wq/wo, wk/wv, w1/w3, w2, lm_head
+# llama_350m's (K, N) products: wq/wo, wk/wv, w1/w3, w2, lm_head; at
+# these rows: a decode round of 1, 8 and 16 slots (the skinny kernel) and
+# the largest prefill bucket
 INT8_WDOT_SHAPES = ((1024, 1024), (1024, 256), (1024, 2816), (2816, 1024),
                     (1024, 32000))
+INT8_WDOT_ROWS = (1, 8, 16, 2048)
+# bytes a cold-L2 timing's operand copies span in all: past twice the
+# card's 50 MB L2, so no call finds its operand there
+COLD_BYTES = 128 << 20
 # the prefix leg: a shared prefix, then 8 prompts extending it
 PREFIX_LEN = 1024
 PREFIX_SUFFIXES = (64, 90, 128, 150, 180, 200, 230, 256)
@@ -947,18 +954,107 @@ def same_bytes(torch, got, want) -> bool:
     return bits_equal(torch, got, want)
 
 
+def cold_ms(torch, fn, operand, min_calls: int = 8,
+            replays: int = 3) -> float:
+    """Device time of one call ``fn(copy)`` with a cold L2: a CUDA graph
+    of calls that rotate over copies of ``operand`` (COLD_BYTES in all,
+    so each call reads its copy from device memory, as a decode round
+    that streams every weight does), replayed between CUDA events; the
+    median of ``replays`` replays, per call.  The graph leaves no host
+    time between the launches."""
+    nbytes = operand.numel() * operand.element_size()
+    copies = [operand] + [operand.clone() for _ in range(
+        max(1, -(-COLD_BYTES // nbytes)) - 1)]
+    calls = len(copies) * -(-min_calls // len(copies))
+    for c in copies[:2]:   # warm-up (a library call may set itself up)
+        fn(c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(copies[i % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph, copies
+    # a library call captured in the graph leaves its workspace cached for
+    # the capture stream: let it go with the graph
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return sorted(times)[len(times) // 2]
+
+
+def int8pack_mm(torch, x, q_t, scale):
+    """The library's weight-only int8 product, ``x [M, K]`` by ``q_t [N,
+    K]`` with a per-channel scale, output in x's dtype; None and the
+    reason where this torch has no CUDA kernel for it."""
+    try:
+        out = torch._weight_int8pack_mm(x, q_t, scale.to(x.dtype))
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as err:
+        return None, f"none: {type(err).__name__}: {str(err)[:160]}"
+    return out, "torch._weight_int8pack_mm"
+
+
+def time_int8_wdot(torch, i8, x, q, scale) -> dict:
+    """K5 at one shape, bf16 x: the device time of a call with a cold L2
+    (``ms``, cold_ms), the eager event time of back-to-back calls
+    (``eager_ms``, the host's cost between them included), the host time
+    of a call (``call_us``), the plain version, the bound, and beside
+    them torch._weight_int8pack_mm (the library's int8-weight product,
+    ``library_ms``, cold) and a dense bf16 torch.matmul over a widened
+    copy of q (``dense_ms``, cold; it reads twice the weight bytes).
+    Neither yardstick is called by the port."""
+    m, k = x.shape
+    n = q.shape[1]
+    out = {"kernel": i8.int8_wdot_shape(x, q),
+           "ms": cold_ms(torch, lambda c: i8.int8_wdot(x, c, scale), q),
+           "eager_ms": cuda_ms(torch, lambda: i8.int8_wdot(x, q, scale)),
+           "call_us": call_us(torch, lambda: i8.int8_wdot(x, q, scale)),
+           "plain_ms": cuda_ms(torch, lambda: i8.int8_wdot_reference(
+               x, q, scale), iters=5)}
+    b_ms, b_by = bound(2.0 * m * k * n, k * n + 4 * n + 2 * m * k + 4 * m * n,
+                       "bfloat16")
+    out.update(bound_ms=b_ms, bound_by=b_by)
+    q_t = q.t().contiguous()
+    got, name = int8pack_mm(torch, x, q_t, scale)
+    out["library"] = name
+    out["library_ms"] = None
+    if got is not None:
+        s_x = scale.to(x.dtype)
+        out["library_ms"] = cold_ms(
+            torch, lambda c: torch._weight_int8pack_mm(x, c, s_x), q_t)
+    del q_t, got
+    dense = q.to(torch.bfloat16)
+    out["dense_ms"] = cold_ms(torch, lambda c: torch.matmul(x, c), dense)
+    out["dense_call_us"] = call_us(torch, lambda: torch.matmul(x, dense))
+    del dense
+    return out
+
+
 def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
     """The three kernels of csrc/int8_serve.cu against their plain
     versions on the card at the llama_350m serving shapes: int8_wdot (K5)
-    at every (K, N) of the model with M 8 (a decode round) and 2048 (the
-    largest prefill bucket), in f32 and bf16;
+    at every (K, N) of the model with M 1, 8 and 16 (decode rounds) and
+    2048 (the largest prefill bucket), in f32 and bf16, timed in bf16 by
+    time_int8_wdot (a cold L2's device time, eager time, the library's
+    int8-weight product and a dense bf16 matmul beside it);
     decode_attention_int8 (K6) at 8 rows, max_len 2048, 4 KV heads of 4
     query heads, D 64, ragged limits 129..2047 and a contiguous block;
     kv_quantize (K7) at a decode round's [8, 1, 4, 64] (one write past
     max_len, dropped) and a 2048-token prefill stack [24, 2048, 4, 64],
-    byte for byte.  Each timed beside its plain version and its bound;
-    K5 beside a dense bf16 torch.matmul of the same shape.  Returns
-    (max_abs_err, times) by kernel name."""
+    byte for byte.  Each timed beside its plain version and its bound.
+    Returns (max_abs_err, times) by kernel name."""
     from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
 
     checks, report = {}, {}
@@ -978,8 +1074,7 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
             q = torch.randint(-127, 128, (k, n), generator=gen,
                               device="cuda", dtype=torch.int8)
             scale = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
-            dense = q.to(torch.bfloat16)
-            for m in (8, 2048):
+            for m in INT8_WDOT_ROWS:
                 for dtype in (torch.float32, torch.bfloat16):
                     x = torch.randn((m, k), generator=gen, device="cuda",
                                     dtype=dtype)
@@ -987,22 +1082,9 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
                          i8.int8_wdot(x, q, scale),
                          i8.int8_wdot_reference(x, q, scale),
                          dtype == torch.float32)
-                ms = cuda_ms(torch, lambda: i8.int8_wdot(x, q, scale))
-                plain = cuda_ms(torch, lambda: i8.int8_wdot_reference(
-                    x, q, scale), iters=5)
-                library = cuda_ms(torch, lambda: torch.matmul(x, dense))
-                b_ms, b_by = bound(2.0 * m * k * n,
-                                   k * n + 4 * n + 2 * m * k + 4 * m * n,
-                                   "bfloat16")
-                report[f"int8_wdot {m}x{k}x{n}"] = dict(
-                    ms=ms, plain_ms=plain, library_ms=library, bound_ms=b_ms,
-                    bound_by=b_by,
-                    # host wall time of one call, back to back: what a
-                    # host-bound decode round pays per product
-                    call_us=call_us(torch, lambda: i8.int8_wdot(x, q, scale)),
-                    library_call_us=call_us(torch, lambda: torch.matmul(
-                        x, dense)))
-            del q, scale, dense
+                report[f"int8_wdot {m}x{k}x{n}"] = time_int8_wdot(
+                    torch, i8, x, q, scale)
+            del q, scale
         # K6: the serving shape, ragged and contiguous
         b, max_len, kv, heads, d = 8, 2048, LLAMA["kv"], LLAMA["heads"], \
             LLAMA["d"]
@@ -1177,10 +1259,17 @@ def serve_int8(torch, np, fa, rng) -> dict:
         srv.submit(prompts[-1], max_new_tokens=8)
         srv.run_to_completion()
 
-    emit({"phase": "profile_int8", **profile_window(
+    prof = profile_window(
         torch, one_request, {"flash_ms": "flash_fwd", "wdot_ms": "wdot",
+                             "wdot_decode_ms": "wdot_skinny",
                              "attention_ms": "decode_attn",
-                             "kv_quantize_ms": "kv_quantize"})})
+                             "kv_quantize_ms": "kv_quantize"})
+    # K5's prefill products: every K5 launch that is not a decode round's
+    wdot = prof["group_ms"]
+    prof["group_ms"]["wdot_prefill_ms"] = (
+        None if wdot["wdot_ms"] is None
+        else wdot["wdot_ms"] - wdot["wdot_decode_ms"])
+    emit({"phase": "profile_int8", **prof})
     del srv, cache
     torch.cuda.empty_cache()
 
@@ -2918,9 +3007,20 @@ def main() -> int:
                              ("flash_bwd", "flash_bwd_dq_mma_kernel"),
                              ("flash_bwd", "flash_bwd_dkv_mma_kernel")):
         for dim in (64, 128):
-            if not tensor_core[src_name]["by_kernel"].get(
-                    f"{kernel}/D{dim}"):
+            if not sum(tensor_core[src_name]["by_kernel"].get(
+                    f"{kernel}/D{dim}", {}).values()):
                 fail(f"{kernel} (D={dim}) has no HMMA/HGMMA in its SASS")
+    # K5's prefill kernel runs on wgmma alone, and no int8 serving kernel
+    # spills (a spill is a local-memory round trip in a bytes-bound loop)
+    wgmma = tensor_core["int8_serve"]["by_kernel"].get(
+        "wdot_wgmma_kernel", {})
+    if not wgmma.get("HGMMA") or wgmma.get("HMMA"):
+        fail(f"wdot_wgmma_kernel's SASS holds {wgmma}: want HGMMA and no "
+             f"HMMA")
+    spills = {k: v for k, v in ptxas.get("int8_serve", {}).items()
+              if re.search(r"\b[1-9]\d* bytes spill (stores|loads)", v)}
+    if spills:
+        fail(f"int8_serve.cu kernels spill: {spills}")
 
     # ---- every kernel against its plain version, then timed
     gen = torch.Generator(device="cuda").manual_seed(0)

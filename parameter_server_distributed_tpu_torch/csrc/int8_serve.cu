@@ -18,20 +18,28 @@
 // What bounds them on this card, and what the designs do about it:
 //  - K5 in a decode round (M = slots, 8) is bound by the weight bytes
 //    (one byte a weight, read once), at a prefill (M = the bucket, up to
-//    2048) by f32 operations on the CUDA cores (2MKN; f32 x must not run
-//    in TF32).  Every output's sum runs in one fixed order whatever M and
-//    whichever of the two shapes computes it (runs of KSEG k, each an
-//    fmaf chain; RUN_GROUPS groups of runs; see runs_a_group), so a
-//    row's product is the same bits in a prefill, an extension and a
-//    decode round.  The skinny shape (M <= SKINNY_M) gives a block 32
-//    columns and a warp each run group, so the weight is read by
-//    N / 32 blocks of 8 warps with no second pass; the tiled shape (M >
-//    SKINNY_M) is a 64 x 64 x 32 shared-memory SGEMM tile, 4 x 4
-//    outputs a thread, that closes a run every KSEG and a group every
-//    runs_a_group runs.  bf16 x at M > SKINNY_M (a bf16 model's
-//    prefill) runs instead on the tensor cores (wdot_mma_kernel), in
-//    their own summation order: the fixed order binds f32 rows, which the
-//    f32 serving check compares token for token.
+//    2048) by operations (2MKN): bf16 ones on the tensor cores for bf16
+//    x, f32 ones on the CUDA cores for f32 x (which must not run in
+//    TF32).  Every f32 output, and every bf16 one up to SKINNY_M rows,
+//    sums in one fixed order whatever M and whichever SIMT shape
+//    computes it (runs of KSEG k, each an fmaf chain; RUN_GROUPS groups
+//    of runs; see runs_a_group), so a row's product is the same bits in
+//    a prefill, an extension and a decode round.  The skinny shape (M <=
+//    SKINNY_M, wdot_skinny_kernel) spreads the weight's bytes over a
+//    thread-block cluster a 64- or 128-column tile, a block a run group and
+//    SKINNY_ROWS rows of a run a warp, the codes copied into shared
+//    memory by cp.async, so enough bytes are in flight to stream q and a
+//    warp's fmaf chains stay short; the cluster adds its groups' sums in
+//    order through distributed shared memory.
+//    The tiled shape (f32 rows above SKINNY_M, wdot_tiled_kernel) is a
+//    64 x 64 x 32 shared-memory SGEMM tile, 4 x 4 outputs a thread, that
+//    closes a run every KSEG and a group every runs_a_group runs.  bf16
+//    x above SKINNY_M (a bf16 model's prefill, wdot_wgmma_kernel) runs on
+//    the tensor cores as wgmma, x and q copied by TMA and q widened in
+//    shared memory, in their own summation order: the fixed order binds
+//    f32 rows, which the f32 serving check compares token for token.
+//    Only int8 bytes of a weight leave device memory in every shape: no
+//    widened copy is made.
 //  - K6 is bound by the cache bytes up to each row's limit (K and V int8,
 //    their f32 scales).  Probabilities are rounded to the model dtype
 //    after normalisation, as in the reference, so an online softmax
@@ -51,17 +59,38 @@
 //    -prec-sqrt=true and -ftz=false (ops/build.py EXTRA_FLAGS); K5 and K6
 //    call fmaf explicitly where they want a fused multiply-add.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "flash_mma.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
+using flash_mma::align1024;
+using flash_mma::bf16;
+using flash_mma::cp_async_16;
+using flash_mma::cp_async_4;
+using flash_mma::cp_async_commit;
+using flash_mma::cp_async_wait;
+using flash_mma::fence_proxy_async;
+using flash_mma::fence_regs;
+using flash_mma::sw128;
+using flash_mma::sw128_desc;
+using flash_mma::wgmma_commit;
+using flash_mma::wgmma_fence;
+using flash_mma::wgmma_wait;
 
 constexpr int KSEG = 64;         // k run of one fmaf chain (K5)
 constexpr int RUN_GROUPS = 8;    // K5's runs fall into this many groups
 constexpr int SKINNY_M = 16;     // K5 rows up to which the skinny shape runs
-constexpr int SKINNY_THREADS = 32 * RUN_GROUPS;   // a warp a run group
-constexpr int SKINNY_TILE = 32;  // columns of a skinny block, one a lane
+constexpr int SKINNY_WARPS = 8;  // most runs a skinny block takes at once
+constexpr int SKINNY_ROWS = 2;   // most rows a skinny warp takes
+constexpr int SKINNY_THREADS = 1024;   // most threads of a skinny block
 constexpr int BM = 64, BN = 64, BK = 32;  // tiled K5
 constexpr int TILED_THREADS = 256;
 constexpr int ATTN_THREADS = 256;
@@ -103,85 +132,293 @@ __device__ __forceinline__ void store_f(void* out, long long i, float v) {
 }
 
 // ----------------------------------------------------------------- K5
-// The order of a K5 sum, the same in both shapes: k falls into runs of
-// KSEG, each an fmaf chain from +0; the runs into RUN_GROUPS groups of
-// ceil(runs / RUN_GROUPS) consecutive runs, each group's runs added in
-// order from +0; the groups added in order from +0; then one multiply by
-// the scale.
-__device__ __forceinline__ int runs_a_group(int K) {
+// The order of a K5 sum, the same in the skinny and the tiled shape: k
+// falls into runs of KSEG, each an fmaf chain from +0; the runs into
+// RUN_GROUPS groups of ceil(runs / RUN_GROUPS) consecutive runs, each
+// group's runs added in order from +0; the groups added in order from +0;
+// then one multiply by the scale.
+__host__ __device__ __forceinline__ int runs_a_group(int K) {
   return ((K + KSEG - 1) / KSEG + RUN_GROUPS - 1) / RUN_GROUPS;
 }
 
-// Skinny: a block takes SKINNY_TILE columns (one a lane) and every row;
-// warp w takes run group w (each run's x staged in shared memory, its
-// weight bytes loaded into registers at once, one byte of q a lane a k),
-// then the block adds the groups in order.
-template <bool BF16, int MT>
-__global__ void __launch_bounds__(SKINNY_THREADS)
-wdot_skinny_kernel(const void* __restrict__ x, const int8_t* __restrict__ q,
-                   const float* __restrict__ scale, float* __restrict__ y,
-                   int M, int K, int N) {
-  __shared__ __align__(16) float xs[RUN_GROUPS][KSEG][MT];
-  __shared__ float gpart[RUN_GROUPS][MT][SKINNY_TILE];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int runs = (K + KSEG - 1) / KSEG;
+// rows of an MT-row skinny tile that one warp takes (the rest of the
+// run's rows go to other warps)
+__host__ __device__ constexpr int skinny_rows_a_warp(int mt) {
+  return mt < SKINNY_ROWS ? mt : SKINNY_ROWS;
+}
+
+// runs a skinny block takes at once: its group's, at most SKINNY_WARPS
+// and at most SKINNY_THREADS threads' worth
+__host__ __device__ inline int skinny_runs(int K, int mt) {
+  const int most = SKINNY_THREADS / 32 / (mt / skinny_rows_a_warp(mt));
   const int g = runs_a_group(K);
-  const int n = blockIdx.x * SKINNY_TILE + lane;
-  float grp[MT];
+  return g < SKINNY_WARPS ? (g < most ? g : most)
+                          : (SKINNY_WARPS < most ? SKINNY_WARPS : most);
+}
+
+// shared memory of a skinny block taking `runs` runs at once over a tile
+// of `tile` columns: their q rows, their partials, the staged x and the
+// inbox of group sums
+__host__ __device__ constexpr int skinny_q_bytes(int runs, int tile) {
+  return runs * KSEG * tile;
+}
+__host__ __device__ constexpr int skinny_smem(int runs, int mt, int tile) {
+  return skinny_q_bytes(runs, tile) +
+         static_cast<int>(sizeof(float)) * mt *
+             (runs * tile + runs * KSEG + tile);
+}
+
+// Four int8 codes (one 32-bit word, the lowest byte first) as exact
+// floats: 2^23 + (b + 128) is a float whose low byte is b + 128, less
+// 2^23 + 128 (two ALU operations a code instead of a quarter-rate I2F).
+__device__ __forceinline__ void widen4(unsigned w, float (&f)[4]) {
+  const unsigned u = w ^ 0x80808080u;
 #pragma unroll
-  for (int m = 0; m < MT; ++m) grp[m] = 0.f;
-  const int r_end = min(runs, (warp + 1) * g);
-  for (int r = warp * g; r < r_end; ++r) {
-    const int k0 = r * KSEG;
-    const int kn = min(KSEG, K - k0);
-    // the run's KSEG weight bytes of this lane's column, all loads issued
-    // before any is used (one memory latency a run, not one a k)
-    const int8_t* qk = q + static_cast<long long>(k0) * N + n;
-    int8_t b[KSEG];
+  for (int j = 0; j < 4; ++j)
+    f[j] = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)),
+                     8388736.f);
+}
+
+// xs[kk][m] = x[m][k0 + kk] as f32 for kk < width, zero past kn and M;
+// 16-byte loads when `vectors` (x 16-byte aligned and K a whole number
+// of 16-byte chunks, so every chunk lies within its row).
+template <bool BF16, int MT>
+__device__ __forceinline__ void stage_x(const void* __restrict__ x,
+                                        float* xs, int M, int K, int k0,
+                                        int kn, int width, int vectors) {
+  if (vectors) {
+    constexpr int V = BF16 ? 8 : 4;   // elements of a 16-byte chunk
+    const int chunks = width / V;
+    for (int e = threadIdx.x; e < MT * chunks; e += blockDim.x) {
+      const int m = e / chunks, kk = (e % chunks) * V;
+      float v[V];
+      if (m < M && kk < kn) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+            static_cast<const char*>(x) +
+            (static_cast<long long>(m) * K + k0 + kk) * (BF16 ? 2 : 4)));
+        const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int kk = 0; kk < KSEG; ++kk)
-      b[kk] = (kk < kn && n < N) ? __ldg(qk + static_cast<long long>(kk) * N)
-                                 : 0;
-    for (int e = lane; e < MT * KSEG; e += 32) {
-      const int m = e / KSEG, kk = e % KSEG;
-      xs[warp][kk][m] =
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (BF16) {
+            v[2 * i] = __uint_as_float(w[i] << 16);
+            v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+          } else {
+            v[i] = __uint_as_float(w[i]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) xs[(kk + i) * MT + m] = v[i];
+    }
+  } else {
+    for (int e = threadIdx.x; e < MT * width; e += blockDim.x) {
+      const int m = e / width, kk = e % width;
+      xs[kk * MT + m] =
           (m < M && kk < kn)
               ? load_f<BF16>(x, static_cast<long long>(m) * K + k0 + kk)
               : 0.f;
     }
-    __syncwarp();
-    float acc[MT];
+  }
+}
+
+// Rows [k0, k0 + kn) of q's TILE columns from n0 into qs ([kk][TILE]
+// bytes), zero past N: 16-byte cp.async chunks (q_mode 2: N % 16 == 0 and
+// q 16-byte aligned), 4-byte ones (1: N % 4 == 0, q 4-byte aligned) or
+// bytes (0); the caller waits.
+template <int TILE>
+__device__ __forceinline__ void copy_q(const int8_t* __restrict__ q,
+                                       unsigned char* qs, int k0, int kn,
+                                       int n0, int N, int q_mode) {
+  if (q_mode == 2) {
+    constexpr int C = TILE / 16;
+    for (int i = threadIdx.x; i < kn * C; i += blockDim.x) {
+      const int kk = i / C, c = (i % C) * 16;
+      const bool in = n0 + c < N;
+      cp_async_16(qs + kk * TILE + c,
+                  q + static_cast<long long>(k0 + kk) * N + (in ? n0 + c : 0),
+                  in);
+    }
+  } else if (q_mode == 1) {
+    constexpr int C = TILE / 4;
+    for (int i = threadIdx.x; i < kn * C; i += blockDim.x) {
+      const int kk = i / C, c = (i % C) * 4;
+      const bool in = n0 + c < N;
+      cp_async_4(qs + kk * TILE + c,
+                 q + static_cast<long long>(k0 + kk) * N + (in ? n0 + c : 0),
+                 in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kn * TILE; i += blockDim.x) {
+      const int kk = i / TILE, c = i % TILE;
+      qs[i] = n0 + c < N ? static_cast<unsigned char>(
+                               q[static_cast<long long>(k0 + kk) * N + n0 + c])
+                         : 0;
+    }
+  }
+  cp_async_commit();
+}
+
+// The cluster barrier in two halves: every thread of the cluster arrives
+// (relaxed: it orders no memory) and later waits for all of them, so a
+// block may touch another's shared memory only once that block is known
+// to have started, while the work between the halves hides the wait.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Skinny (M <= SKINNY_M: every decode round).  Bound by the weight bytes
+// (one a weight), which stream at the memory's rate only with many loads
+// in flight, and at the small shapes by the latency of a block's chain
+// (copy, products, sums): a column tile of TILE = 32 * COLS columns is
+// one thread-block cluster of RUN_GROUPS blocks (grid (column tiles,
+// RUN_GROUPS)), and the block of cluster rank g sums run group g of the
+// tile, a chunk of up to SKINNY_WARPS of its runs at a time.  The block
+// copies the chunk's q rows into shared memory with cp.async (whole
+// 16-byte chunks, no registers held) while it stages the chunk's x once.
+// Each run is RQ warps, one for each SKINNY_ROWS rows (all MT rows below
+// that), each lane COLS adjacent columns: one shared load of their codes
+// and one fmaf a row and column a k, so a warp's chains are SKINNY_ROWS
+// rows' work, not MT's.  COLS is 4 (a 32-bit load, 128-column tiles)
+// where the tiles already fill the card, 2 where halving the tiles'
+// width puts more of it to work (launch_skinny).  The block adds the
+// chunk's runs in order, through shared memory, into its group's sums
+// (registers), and stores each column's sum into the inbox of the
+// cluster block that ends that column (distributed shared memory: the
+// cluster barrier arrived at on entry is waited on first, so every block
+// of the cluster has started); after a second cluster barrier each block
+// adds the RUN_GROUPS sums of an eighth of
+// the tile's columns in group order from its own inbox, scales (scales
+// loaded at the start) and stores.  One launch; no global scratch, no
+// atomics.
+template <bool BF16, int MT, int COLS>
+__global__ void __cluster_dims__(1, RUN_GROUPS, 1)
+__launch_bounds__(SKINNY_THREADS)
+wdot_skinny_kernel(const void* __restrict__ x, const int8_t* __restrict__ q,
+                   const float* __restrict__ scale, float* __restrict__ y,
+                   int M, int K, int N, int q_mode, int x_vectors) {
+  constexpr int TILE = 32 * COLS;
+  constexpr int RW = skinny_rows_a_warp(MT);   // rows a warp takes
+  constexpr int RQ = MT / RW;                  // warps a run
+  constexpr int PER = TILE / RUN_GROUPS;       // columns a block ends
+  constexpr int HELD = COLS * RW;   // group sums a thread holds: MT * TILE
+                                    // over the block's >= 32 * RQ threads
+  using Codes = typename std::conditional<COLS == 4, unsigned,
+                                          unsigned short>::type;
+  static_assert(COLS == 2 || COLS == 4, "a lane's codes are one load");
+  extern __shared__ __align__(16) unsigned char sk_smem[];
+  const int warps = blockDim.x / 32 / RQ;   // runs a chunk
+  unsigned char* qs = sk_smem;              // [warps][KSEG][TILE] bytes
+  float* part =
+      reinterpret_cast<float*>(sk_smem + skinny_q_bytes(warps, TILE));
+  float* xs = part + warps * MT * TILE;     // [warps * KSEG][MT]
+  float* inbox = xs + warps * KSEG * MT;    // [RUN_GROUPS][MT][PER]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int group = static_cast<int>(cluster.block_rank());
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = warp / RQ, band = warp % RQ;   // run of the chunk, rows
+  const int c = COLS * lane;                      // the lane's columns
+  const int n0 = blockIdx.x * TILE;
+  const int runs = (K + KSEG - 1) / KSEG, g = runs_a_group(K);
+  const int r_end = min(runs, (group + 1) * g);
+  // the column this thread ends (blockDim.x % PER == 0), its scale now
+  const int end_n = n0 + group * PER + threadIdx.x % PER;
+  const float sc = end_n < N ? __ldg(scale + end_n) : 0.f;
+  cluster_arrive_relaxed();   // waited on before the inbox stores
+  float held[HELD];   // group sums of elements threadIdx.x + i * blockDim.x
 #pragma unroll
-    for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+  for (int i = 0; i < HELD; ++i) held[i] = 0.f;
+  for (int r0 = group * g; r0 < r_end; r0 += warps) {
+    // the chunk's runs, none past the group's last
+    const int nr = min(warps, r_end - r0);
+    const int ck0 = r0 * KSEG, ckn = min(nr * KSEG, K - ck0);
+    copy_q<TILE>(q, qs, ck0, ckn, n0, N, q_mode);
+    stage_x<BF16, MT>(x, xs, M, K, ck0, ckn, nr * KSEG, x_vectors);
+    cp_async_wait<0>();
+    __syncthreads();
+    const int r = r0 + slot;
+    const int kn = r < r_end ? min(KSEG, K - r * KSEG) : 0;
+    float acc[RW][COLS];
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+#pragma unroll
+      for (int j = 0; j < COLS; ++j) acc[i][j] = 0.f;
+    const Codes* qw =
+        reinterpret_cast<const Codes*>(qs + slot * KSEG * TILE) + lane;
+    const float* xr = xs + slot * KSEG * MT + band * RW;
 #pragma unroll
     for (int kk = 0; kk < KSEG; ++kk) {
       if (kk >= kn) break;
-      const float w = static_cast<float>(b[kk]);
+      float w[4];
+      widen4(qw[kk * 32], w);
+      float xv[RW];
+      if constexpr (RW == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(xr + kk * MT);
+        xv[0] = v.x;
+        xv[1] = v.y;
+      } else {
 #pragma unroll
-      for (int m = 0; m < MT; ++m) acc[m] = fmaf(xs[warp][kk][m], w, acc[m]);
+        for (int i = 0; i < RW; ++i) xv[i] = xr[kk * MT + i];
+      }
+#pragma unroll
+      for (int i = 0; i < RW; ++i)
+#pragma unroll
+        for (int j = 0; j < COLS; ++j)
+          acc[i][j] = fmaf(xv[i], w[j], acc[i][j]);
     }
+    if (kn > 0) {
 #pragma unroll
-    for (int m = 0; m < MT; ++m) grp[m] = __fadd_rn(grp[m], acc[m]);
-    __syncwarp();    // the warp's x runs are read before the next staging
+      for (int i = 0; i < RW; ++i) {
+        float* dst = part + (slot * MT + band * RW + i) * TILE + c;
+        if constexpr (COLS == 4)
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        else
+          *reinterpret_cast<float2*>(dst) = make_float2(acc[i][0], acc[i][1]);
+      }
+    }
+    __syncthreads();
+    // the group's sums take the chunk's runs in run order
+#pragma unroll
+    for (int i = 0; i < HELD; ++i) {
+      const int e = threadIdx.x + i * blockDim.x;
+      if (e < MT * TILE)
+        for (int w = 0; w < nr; ++w)
+          held[i] = __fadd_rn(held[i], part[w * MT * TILE + e]);
+    }
+    if (r0 + warps < r_end) __syncthreads();   // qs, part, xs reused
   }
+  // each group sum into the inbox of the block that ends its column
+  cluster_wait();
 #pragma unroll
-  for (int m = 0; m < MT; ++m) gpart[warp][m][lane] = grp[m];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MT * SKINNY_TILE; e += SKINNY_THREADS) {
-    const int m = e / SKINNY_TILE, c = e % SKINNY_TILE;
-    const int nn = blockIdx.x * SKINNY_TILE + c;
-    if (m >= M || nn >= N) continue;
+  for (int i = 0; i < HELD; ++i) {
+    const int e = threadIdx.x + i * blockDim.x;
+    if (e < MT * TILE) {
+      const int m = e / TILE, cc = e % TILE;
+      cluster.map_shared_rank(inbox, cc / PER)[(group * MT + m) * PER +
+                                               cc % PER] = held[i];
+    }
+  }
+  cluster.sync();   // every inbox holds its columns' RUN_GROUPS sums
+  for (int e = threadIdx.x; e < MT * PER; e += blockDim.x) {
+    const int m = e / PER;
+    if (m >= M || end_n >= N) continue;
     float total = 0.f;
 #pragma unroll
-    for (int w = 0; w < RUN_GROUPS; ++w)
-      total = __fadd_rn(total, gpart[w][m][c]);
-    y[static_cast<long long>(m) * N + nn] = __fmul_rn(total, scale[nn]);
+    for (int h = 0; h < RUN_GROUPS; ++h)
+      total = __fadd_rn(total, inbox[(h * MT + m) * PER + e % PER]);
+    y[static_cast<long long>(m) * N + end_n] = __fmul_rn(total, sc);
   }
 }
 
 // Tiled: block (column tile, row tile) of BM x BN outputs, 4 x 4 a thread.
 template <bool BF16>
-__global__ void __launch_bounds__(TILED_THREADS)
+__global__ void __launch_bounds__(TILED_THREADS, 1)
 wdot_tiled_kernel(const void* __restrict__ x, const int8_t* __restrict__ q,
                   const float* __restrict__ scale, float* __restrict__ y,
                   int M, int K, int N) {
@@ -260,136 +497,377 @@ wdot_tiled_kernel(const void* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-// bf16 x at M > SKINNY_M: a 128 x 128 block tile on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).  x's rows load as 16-byte
-// chunks; q's int8 rows load as 16-byte chunks and widen to bf16 (exact:
-// |q| <= 127) as they are stored transposed, [n][k], so both operands'
-// fragments are 32-bit shared-memory loads of k pairs.  8 warps, 2 x 4,
-// each 64 x 32 outputs (4 x 4 mma tiles).  The sum is the tensor cores'
-// order, not the fixed one above: only bf16 rows take this shape.
-constexpr int MMA_BM = 128, MMA_BN = 128, MMA_BK = 32;
-constexpr int MMA_THREADS = 256;
-constexpr int MMA_LD = MMA_BK + 8;   // padded row of k (bank spread)
+// bf16 x at M > SKINNY_M (a bf16 model's prefill): bound by bf16
+// operations (2MKN), so it runs on the tensor cores as warpgroup MMAs,
+// the only instruction that reaches Hopper's full rate.  A block takes a
+// TC_BM x TC_BN output tile, two warpgroups of 64 rows each running
+// wgmma m64n128k16 (bf16 in, f32 accumulators) with both operands read
+// from 128-byte-swizzled shared memory through descriptors
+// (flash_mma.cuh).  One thread copies each TC_BK-deep tile of x (K-major,
+// swizzled by the copy) and of q's int8 rows (as stored, [k][n]) with two
+// TMA tensor copies into a TC_STAGES ring, completing on an mbarrier: a
+// tile's copies are two instructions, where per-thread 16-byte copies
+// cost the block more issue time than the products.  While tile kt's
+// products run, the block widens tile kt + 1's int8 codes into a bf16 B
+// tile kept in [k][n] order, the N-major form that wgmma takes for 16-bit
+// types with its transpose-B bit, 16 bytes a store (exact: |q| <= 127);
+// the B tile is double buffered, with two block barriers a tile, and two
+// blocks fit an SM.  On the card a tile's products and the widening of
+// its codes take about as long as each other, and the shared memory's
+// bandwidth, which the products' operand reads mostly use, holds a tile
+// above the products' own time.  The epilogue scales the
+// f32 accumulators by scale[n] and stores f32.  The sum runs in the
+// tensor cores' order, not the fixed one: only bf16 rows take this shape,
+// and only where every 16-byte chunk is aligned (wdot_shape).
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 64, TC_STAGES = 3;
+constexpr int TC_THREADS = 256;                     // two warpgroups
+constexpr int TC_X_TILE = TC_BM * TC_BK;            // bf16 elements
+constexpr int TC_B_TILE = TC_BK * TC_BN;            // bf16 elements
+constexpr int TC_B_SLAB = TC_BK * 64;               // a 64-column slab
+constexpr int TC_Q_TILE = TC_BK * TC_BN;            // int8 bytes
+constexpr int TC_SMEM = 1024 + TC_STAGES * (2 * TC_X_TILE + TC_Q_TILE) +
+                        2 * 2 * TC_B_TILE + TC_STAGES * 8;
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         const unsigned* b) {
+// The descriptor of an N-major B tile at p: sw128_desc's, with the leading
+// byte offset (bits 16-29, 16-byte units) the step from one 64-column
+// slab to the next.
+__device__ __forceinline__ uint64_t sw128_desc_n(const bf16* p) {
+  constexpr uint64_t lbo = 2 * TC_B_SLAB / 16;
+  return (sw128_desc(p) & ~(0x3FFFull << 16)) | (lbo << 16);
+}
+
+static_assert(TC_BN % 64 == 0 && TC_BK % 16 == 0, "whole slabs and k steps");
+static_assert(TC_STAGES >= 2, "a tile in use while the next lands");
+
+// d[64 x 128] += a[64 x 16] b[16 x 128], a K-major and b N-major (b[k][n]
+// at row k of slab n / 64), both through descriptors.
+__device__ __forceinline__ void wgmma_m64n128k16_tb(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-__global__ void __launch_bounds__(MMA_THREADS)
-wdot_mma_kernel(const unsigned short* __restrict__ x,
-                const int8_t* __restrict__ q, const float* __restrict__ scale,
-                float* __restrict__ y, int M, int K, int N) {
-  __shared__ __align__(16) unsigned short as[MMA_BM][MMA_LD];
-  __shared__ __align__(16) unsigned short bs[MMA_BN][MMA_LD];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.y * MMA_BM, n0 = blockIdx.x * MMA_BN;
-  float acc[4][4][4];
+// 16 int8 codes as 16 bf16 (exact), the lowest first: lo holds codes
+// 0-7, hi codes 8-15.
+__device__ __forceinline__ void widen16(const uint4 v, uint4& lo, uint4& hi) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  unsigned p[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += MMA_BK) {
-    // x: 128 rows of 32 k, 4 chunks of 8 a row, 2 chunks a thread
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * MMA_THREADS;
-      const int row = c / 4, kc = (c % 4) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + row < M && k0 + kc < K)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            x + static_cast<long long>(m0 + row) * K + k0 + kc));
-      *reinterpret_cast<uint4*>(&as[row][kc]) = v;
-    }
-    // q: 32 k rows of 128 n, 8 chunks of 16 a row, 1 chunk a thread
-    {
-      const int krow = tid / 8, nc = (tid % 8) * 16;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k0 + krow < K && n0 + nc < N)
-        v = __ldg(reinterpret_cast<const uint4*>(
-            q + static_cast<long long>(k0 + krow) * N + n0 + nc));
-      const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float f = static_cast<float>(
-            static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xff));
-        bs[nc + i][krow] =
-            static_cast<unsigned short>(__float_as_uint(f) >> 16);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < MMA_BK; ks += 16) {
-      unsigned a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + g;
-        a[i][0] = *reinterpret_cast<const unsigned*>(&as[r][ks + 2 * t]);
-        a[i][1] = *reinterpret_cast<const unsigned*>(&as[r + 8][ks + 2 * t]);
-        a[i][2] = *reinterpret_cast<const unsigned*>(&as[r][ks + 2 * t + 8]);
-        a[i][3] =
-            *reinterpret_cast<const unsigned*>(&as[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + g;
-        b[j][0] = *reinterpret_cast<const unsigned*>(&bs[n][ks + 2 * t]);
-        b[j][1] = *reinterpret_cast<const unsigned*>(&bs[n][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    widen4(w[i], f);
+    // the high halves of two floats are their bf16 (exact here)
+    p[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                           0x7632);
+    p[2 * i + 1] = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]),
+                               0x7632);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = m0 + wm * 64 + i * 16 + g + (r >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + j * 8 + 2 * t + (r & 1);
-        if (m < M && n < N)
-          y[static_cast<long long>(m) * N + n] =
-              __fmul_rn(acc[i][j][r], scale[n]);
-      }
+  lo = make_uint4(p[0], p[1], p[2], p[3]);
+  hi = make_uint4(p[4], p[5], p[6], p[7]);
 }
 
+// mbarriers in shared memory: where the TMA copies land
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   flash_mma::smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// arrive, and expect `bytes` more from copies that complete on the barrier
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(flash_mma::smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// TMA: the box of a 2-D tensor map at (c0 inner, c1 outer) into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          flash_mma::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(flash_mma::smem_u32(bar))
+      : "memory");
+}
+// Wait for the phase of the given parity to complete.  Bounded: a
+// pipeline fault traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  for (int spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(flash_mma::smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1 << 22)) __trap();
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 2)
+wdot_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap q_map,
+                  const float* __restrict__ scale, float* __restrict__ y,
+                  int M, int K, int N) {
+  extern __shared__ unsigned char tc_smem[];
+  bf16* xs = align1024(tc_smem);             // [stage][TC_BM][TC_BK], sw128
+  bf16* bs = xs + TC_STAGES * TC_X_TILE;     // [2][slab][TC_BK][64], sw128
+  int8_t* qs = reinterpret_cast<int8_t*>(bs + 2 * TC_B_TILE);   // [stage]
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(qs + TC_STAGES * TC_Q_TILE);
+  const int tid = threadIdx.x, wg = tid / 128;
+  // row tiles run fastest, so the blocks in flight share q's column
+  // tiles and x (a few MB) stays in L2
+  const int m0 = blockIdx.x * TC_BM, n0 = blockIdx.y * TC_BN;
+  const int tiles = (K + TC_BK - 1) / TC_BK;
+  if (tid == 0) {
+    for (int s = 0; s < TC_STAGES; ++s) mbar_init(&loaded[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // tile j's x and q into stage j % TC_STAGES (thread 0); the maps
+  // zero-fill past M, N and K
+  auto load = [&](int j) {
+    const int s = j % TC_STAGES;
+    mbar_expect(&loaded[s], 2 * TC_X_TILE + TC_Q_TILE);
+    tma_load_2d(xs + s * TC_X_TILE, &x_map, j * TC_BK, m0, &loaded[s]);
+    tma_load_2d(qs + s * TC_Q_TILE, &q_map, n0, j * TC_BK, &loaded[s]);
+  };
+  // tile j's int8 q, once landed, widened into B tile j % 2
+  auto widen = [&](int j) {
+    const int s = j % TC_STAGES;
+    mbar_wait(&loaded[s], (j / TC_STAGES) & 1);
+    const int8_t* qt = qs + s * TC_Q_TILE;
+    bf16* bt = bs + (j & 1) * TC_B_TILE;
+#pragma unroll
+    for (int i = 0; i < TC_Q_TILE / 16 / TC_THREADS; ++i) {
+      const int e = tid + i * TC_THREADS;
+      const int r = e / (TC_BN / 16), c = e % (TC_BN / 16);
+      uint4 lo, hi;
+      widen16(*reinterpret_cast<const uint4*>(qt + r * TC_BN + c * 16), lo,
+              hi);
+      bf16* slab = bt + (c / 4) * TC_B_SLAB;   // 4 chunks of 16 a slab
+      *reinterpret_cast<uint4*>(slab + sw128(r, (c % 4) * 2)) = lo;
+      *reinterpret_cast<uint4*>(slab + sw128(r, (c % 4) * 2 + 1)) = hi;
+    }
+  };
+
+  float acc[TC_BN / 2];
+#pragma unroll
+  for (int i = 0; i < TC_BN / 2; ++i) acc[i] = 0.f;
+  if (tid == 0)
+    for (int j = 0; j < TC_STAGES - 1 && j < tiles; ++j) load(j);
+  widen(0);
+  fence_proxy_async();
+  __syncthreads();
+  for (int kt = 0; kt < tiles; ++kt) {
+    const bf16* xa = xs + (kt % TC_STAGES) * TC_X_TILE + wg * 64 * TC_BK;
+    const bf16* bt = bs + (kt & 1) * TC_B_TILE;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < TC_BK / 16; ++ks)
+      wgmma_m64n128k16_tb(acc, sw128_desc(xa + ks * 16),
+                          sw128_desc_n(bt + ks * 16 * 64));
+    wgmma_commit();
+    wgmma_wait<1>();    // this warpgroup's products of tile kt - 1 are done
+    fence_regs(acc);
+    __syncthreads();    // and the other's: its stage and B tile are free
+    if (tid == 0 && kt + TC_STAGES - 1 < tiles) load(kt + TC_STAGES - 1);
+    if (kt + 1 < tiles) widen(kt + 1);
+    fence_proxy_async();   // the widened tile, for wgmma (and the q codes
+    __syncthreads();       // read from a stage before a copy overwrites it)
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int t = tid % 128;
+  // accumulator i of the m64n128 tile: n tile i / 4 (8 columns each), row
+  // lane / 4 (+8 for i % 4 >= 2), columns 2 * (lane % 4) + {0, 1}
+  const int warp = t / 32, lane = t % 32;
+  const int row = m0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < TC_BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane % 4);
+    if (n >= N) continue;   // N is even: n + 1 < N as well
+    const float s0 = __ldg(scale + n), s1 = __ldg(scale + n + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + 8 * h;
+      if (m < M)
+        *reinterpret_cast<float2*>(y + static_cast<long long>(m) * N + n) =
+            make_float2(__fmul_rn(acc[4 * j + 2 * h], s0),
+                        __fmul_rn(acc[4 * j + 2 * h + 1], s1));
+    }
+  }
+}
+
+enum WdotShape { WDOT_SKINNY = 0, WDOT_TENSOR_CORES = 1, WDOT_TILED = 2 };
+
+// Which K5 kernel takes a call: the skinny one up to SKINNY_M rows; above
+// it the tensor cores for bf16 rows whose 16-byte chunks are aligned (x
+// and q 16-byte aligned, K % 8 == 0, N % 16 == 0), the tiled SIMT kernel
+// otherwise.
+int wdot_shape(int M, int K, int N, bool bf16, const void* x, const void* q) {
+  if (M <= SKINNY_M) return WDOT_SKINNY;
+  if (bf16 && K % 8 == 0 && N % 16 == 0 &&
+      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(q) & 15) == 0)
+    return WDOT_TENSOR_CORES;
+  return WDOT_TILED;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// Raise a kernel's dynamic shared memory limit to `bytes`, once a device
+// (`done`: the launcher's flags, one a device).
+cudaError_t allow_smem(const void* kernel, int bytes,
+                       bool (&done)[MAX_DEVICES]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+// A 2-D TMA map of a row-major [outer][inner] tensor (`pitch` bytes a
+// row) with boxes of box_inner x box_outer elements, zero past its edges.
+// cuTensorMapEncodeTiled is a host function of the driver, found through
+// the runtime (nothing links libcuda).
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type,
+                          const void* base, long long inner, long long outer,
+                          long long pitch, int box_inner, int box_outer,
+                          CUtensorMapSwizzle swizzle) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult res = encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool BF16, int MT, int COLS>
+int launch_skinny_cols(const void* x, const int8_t* q, const float* scale,
+                       float* y, int M, int K, int N, cudaStream_t stream) {
+  constexpr int TILE = 32 * COLS;
+  static bool smem_set[MAX_DEVICES];
+  const auto kernel = wdot_skinny_kernel<BF16, MT, COLS>;
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(kernel),
+                 skinny_smem(SKINNY_WARPS, MT, TILE), smem_set);
+  if (err != cudaSuccess) return err;
+  const int warps_a_run = MT / skinny_rows_a_warp(MT);
+  const int runs = skinny_runs(K, MT);
+  const dim3 grid((N + TILE - 1) / TILE, RUN_GROUPS);
+  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+  const int q_mode = (N % 16 == 0 && (qa & 15) == 0) ? 2
+                     : (N % 4 == 0 && (qa & 3) == 0) ? 1 : 0;
+  const int x_vectors = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                        K % (BF16 ? 8 : 4) == 0;
+  kernel<<<grid, 32 * warps_a_run * runs, skinny_smem(runs, MT, TILE),
+           stream>>>(x, q, scale, y, M, K, N, q_mode, x_vectors);
+  return cudaGetLastError();
+}
+
+// 64-column tiles (2 columns a lane) where 128-column ones give fewer
+// than two blocks an SM and a block has at most 8 warps: twice the
+// blocks, each with half the products, where the card would sit idle;
+// 128-column tiles otherwise (on the card, halving a block of more warps
+// or a grid that fills it costs more in shared loads and widening than
+// it gains)
 template <bool BF16, int MT>
 int launch_skinny(const void* x, const int8_t* q, const float* scale, float* y,
                   int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid((N + SKINNY_TILE - 1) / SKINNY_TILE);
-  wdot_skinny_kernel<BF16, MT><<<grid, SKINNY_THREADS, 0, stream>>>(
-      x, q, scale, y, M, K, N);
-  return cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int warps = skinny_runs(K, MT) * (MT / skinny_rows_a_warp(MT));
+  if ((N + 127) / 128 * RUN_GROUPS >= 2 * sms || warps > 8)
+    return launch_skinny_cols<BF16, MT, 4>(x, q, scale, y, M, K, N, stream);
+  return launch_skinny_cols<BF16, MT, 2>(x, q, scale, y, M, K, N, stream);
 }
 
 template <bool BF16>
 int launch_wdot(const void* x, const int8_t* q, const float* scale, float* y,
                 int M, int K, int N, cudaStream_t stream) {
-  if (M <= 1) return launch_skinny<BF16, 1>(x, q, scale, y, M, K, N, stream);
-  if (M <= 2) return launch_skinny<BF16, 2>(x, q, scale, y, M, K, N, stream);
-  if (M <= 4) return launch_skinny<BF16, 4>(x, q, scale, y, M, K, N, stream);
-  if (M <= 8) return launch_skinny<BF16, 8>(x, q, scale, y, M, K, N, stream);
-  if (M <= SKINNY_M)
+  const int shape = wdot_shape(M, K, N, BF16, x, q);
+  if (shape == WDOT_SKINNY) {
+    if (M <= 1) return launch_skinny<BF16, 1>(x, q, scale, y, M, K, N, stream);
+    if (M <= 2) return launch_skinny<BF16, 2>(x, q, scale, y, M, K, N, stream);
+    if (M <= 4) return launch_skinny<BF16, 4>(x, q, scale, y, M, K, N, stream);
+    if (M <= 8) return launch_skinny<BF16, 8>(x, q, scale, y, M, K, N, stream);
     return launch_skinny<BF16, SKINNY_M>(x, q, scale, y, M, K, N, stream);
-  // the tensor cores take bf16 rows whose 16-byte chunks are aligned
-  if (BF16 && K % 8 == 0 && N % 16 == 0 &&
-      (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(q) & 15) == 0) {
-    const dim3 grid((N + MMA_BN - 1) / MMA_BN, (M + MMA_BM - 1) / MMA_BM);
-    wdot_mma_kernel<<<grid, MMA_THREADS, 0, stream>>>(
-        static_cast<const unsigned short*>(x), q, scale, y, M, K, N);
+  }
+  if (shape == WDOT_TENSOR_CORES) {
+    static bool smem_set[MAX_DEVICES];
+    cudaError_t err = allow_smem(
+        reinterpret_cast<const void*>(wdot_wgmma_kernel), TC_SMEM, smem_set);
+    if (err != cudaSuccess) return err;
+    CUtensorMap x_map, q_map;
+    err = tensor_map_2d(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                        2LL * K, TC_BK, TC_BM,
+                        CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    err = tensor_map_2d(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, N,
+                        TC_BN, TC_BK, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN);
+    wdot_wgmma_kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+        x_map, q_map, scale, y, M, K, N);
     return cudaGetLastError();
   }
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
@@ -582,6 +1060,13 @@ extern "C" void psdt_int8_serve_limits(int* out) {
   out[2] = SKINNY_M;
   out[3] = MAXD;
   out[4] = ATTN_THREADS;
+}
+
+// Which K5 kernel psdt_int8_wdot launches for these operands: 0 the
+// skinny one, 1 the tensor cores, 2 the tiled SIMT kernel.
+extern "C" int psdt_int8_wdot_shape(int M, int K, int N, int x_bf16,
+                                    const void* x, const void* q) {
+  return wdot_shape(M, K, N, x_bf16 != 0, x, q);
 }
 
 // K5.  x [M, K] (bf16 when x_bf16, else f32), q [K, N] int8, scale [N]

@@ -39,6 +39,8 @@ launches = {"int8_wdot": 0, "decode_attention_int8": 0, "kv_quantize": 0}
 KSEG = 64            # k run of one K5 fmaf chain
 RUN_GROUPS = 8       # groups of K5's runs (a fixed summation order)
 SKINNY_M = 16        # K5 rows up to which the skinny shape runs
+# K5's kernels, as psdt_int8_wdot_shape numbers them
+WDOT_SHAPES = ("skinny", "tensor_cores", "tiled")
 MAXD = 256           # head dim (K6, K7)
 ATTN_THREADS = 256
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -146,13 +148,14 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.psdt_int8_wdot.argtypes = ([ptr, i32] + [ptr] * 3
                                        + [i32, i32, i32, ptr])
+        lib.psdt_int8_wdot_shape.argtypes = [i32] * 4 + [ptr, ptr]
         lib.psdt_decode_attention_int8.argtypes = (
             [ptr, i32] + [ptr] * 5 + [i64, ptr] + [i32] * 6
             + [ctypes.c_float, ptr])
         lib.psdt_kv_quantize.argtypes = (
             [ptr, ptr, i32] + [ptr] * 5 + [i64] + [i32] * 5 + [ptr])
-        for fn in (lib.psdt_int8_wdot, lib.psdt_decode_attention_int8,
-                   lib.psdt_kv_quantize):
+        for fn in (lib.psdt_int8_wdot, lib.psdt_int8_wdot_shape,
+                   lib.psdt_decode_attention_int8, lib.psdt_kv_quantize):
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -224,6 +227,18 @@ def int8_wdot(x: Tensor, q: Tensor, scale: Tensor) -> Tensor:
             scale.data_ptr(), y.data_ptr(), m, k, n, _stream(dev))
     _launched(err, "int8_wdot")
     return y.reshape(*lead, n)
+
+
+def int8_wdot_shape(x: Tensor, q: Tensor) -> str:
+    """Which K5 kernel :func:`int8_wdot` launches for these CUDA operands:
+    ``"skinny"`` (up to SKINNY_M rows), ``"tensor_cores"`` (bf16 rows
+    above it whose 16-byte chunks are aligned) or ``"tiled"``."""
+    k, n = q.shape
+    x2 = x.reshape(-1, k).contiguous()
+    shape = _lib().psdt_int8_wdot_shape(
+        x2.shape[0], k, n, int(x2.dtype == torch.bfloat16), x2.data_ptr(),
+        q.data_ptr())
+    return WDOT_SHAPES[shape]
 
 
 def decode_attention_int8(q: Tensor, k8: Tensor, v8: Tensor, ks: Tensor,

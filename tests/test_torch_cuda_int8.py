@@ -3,7 +3,7 @@ ops/int8_serve.py) against their plain PyTorch versions on the same
 inputs: K5 ``int8_wdot`` and K6 ``decode_attention_int8`` in f32 within
 rtol 2e-5, atol 2e-5 (tests/test_quant.py's tolerance for wdot) and in
 bf16 within 2^-7 of the output's largest magnitude (bf16 rows above 16
-with aligned 16-byte chunks take K5's tensor-core tile); K7 ``kv_quantize``
+with aligned 16-byte chunks take K5's wgmma kernel); K7 ``kv_quantize``
 byte for byte.  Marked ``cuda``; skips without a card.  On one, run
 ``python -m pytest --noconftest tests/test_torch_cuda_int8.py -m cuda``.
 Imports neither ``jax`` nor the JAX package.  Inputs are seeded with
@@ -52,16 +52,34 @@ def _same(a, b):
             and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
 
 
+# the skinny kernel's edges (1 and 16 rows, N off its 4-column words and
+# its 128-column tiles, run counts off the 8 run groups: K 200 has 4 runs,
+# 2816 has 44, 5000 has 79, more than a block's 8 warps take at once),
+# the SIMT and tensor-core tiles' ragged edges, then the bf16 prefill
+# products at llama_350m's K and N (17, 64 and 2048 rows)
+WDOT_CASES = ([(1, 48, 33), (3, 1024, 256), (8, 2816, 1024), (16, 200, 130),
+               (17, 1024, 256), (200, 300, 97), (130, 104, 144),
+               (2048, 1024, 2816), (1, 1024, 32000), (16, 2816, 1000),
+               (5, 200, 33), (8, 5000, 130), (4, 8192, 1000)]
+              + [(m, k, n) for m in (17, 64, 2048) for k in (1024, 2816)
+                 for n in (256, 32000) if (m, k, n) != (17, 1024, 256)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 48, 33), (3, 1024, 256),
-                                   (8, 2816, 1024), (16, 200, 130),
-                                   (17, 1024, 256), (200, 300, 97),
-                                   (130, 104, 144), (2048, 1024, 2816)])
-def test_int8_wdot_matches_plain(card, dtype, m, k, n):
+@pytest.mark.parametrize("m,k,n,offset",
+                         [(m, k, n, 0) for m, k, n in WDOT_CASES]
+                         + [(8, 1024, 256, 1), (64, 1024, 256, 1)])
+def test_int8_wdot_matches_plain(card, dtype, m, k, n, offset):
+    """``offset`` > 0: x is a view that starts that many elements into its
+    storage, so its data pointer is not 16-byte aligned (the skinny
+    kernel stages it by scalar loads, and bf16 rows above 16 take the
+    SIMT tile instead of the tensor cores)."""
     rng = np.random.default_rng(m * 7 + n)
-    x = _randn(rng, (m, k), dtype, card)
+    x = _randn(rng, (m * k + offset,), dtype, card)[offset:].view(m, k)
     q, scale = _weights(rng, k, n, card)
+    if offset and m > i8.SKINNY_M:
+        assert i8.int8_wdot_shape(x, q) == "tiled"
     before = i8.launches["int8_wdot"]
     got = i8.int8_wdot(x, q, scale)
     torch.cuda.synchronize()
@@ -71,18 +89,46 @@ def test_int8_wdot_matches_plain(card, dtype, m, k, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [96, 1024, 2816])
-def test_int8_wdot_rows_do_not_depend_on_the_batch(card, k):
-    """A row's product is the same bits whichever shape computes it (the
-    skinny one up to 16 rows, the tiled one above), so a prefill, an
-    extension and a decode round agree on a shared row."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [96, 200, 1024, 2816, 5000])
+def test_int8_wdot_rows_do_not_depend_on_the_batch(card, dtype, k):
+    """A row's product is the same bits whichever shape computes it, so a
+    prefill, an extension and a decode round agree on a shared row: f32
+    rows in the skinny shape (up to 16 rows) and the tiled one above,
+    held against a 70-row call; bf16 rows up to 16 (the skinny shape's
+    fixed order; above 16 they take the tensor cores' order) against a
+    16-row call."""
     rng = np.random.default_rng(k)
-    x = _randn(rng, (70, k), torch.float32, card)
+    x = _randn(rng, (70, k), dtype, card)
     q, scale = _weights(rng, k, 300, card)
-    full = i8.int8_wdot(x, q, scale)
-    for rows in (1, 5, 16):
-        assert _same(i8.int8_wdot(x[:rows], q, scale), full[:rows])
-    assert _same(i8.int8_wdot(x[40:57], q, scale), full[40:57])
+    if dtype == torch.float32:
+        full = i8.int8_wdot(x, q, scale)
+        for rows in (1, 5, 16):
+            assert _same(i8.int8_wdot(x[:rows], q, scale), full[:rows])
+        assert _same(i8.int8_wdot(x[40:57], q, scale), full[40:57])
+    else:
+        full = i8.int8_wdot(x[:16], q, scale)
+        for rows in (1, 5, 8):
+            assert _same(i8.int8_wdot(x[:rows], q, scale), full[:rows])
+        assert _same(i8.int8_wdot(x[3:10], q, scale), full[3:10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 256), (1024, 2816),
+                                 (2816, 1024), (1024, 32000)])
+def test_int8_wdot_shapes_of_llama_350m(card, k, n):
+    """The kernel each llama_350m product takes: a decode round's rows
+    (1-16) the skinny kernel in either dtype, a bf16 prefill's (17-2048)
+    the tensor cores, an f32 prefill's the tiled SIMT kernel."""
+    q = torch.zeros((k, n), dtype=torch.int8, device=card)
+    for m in (1, 8, 16):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.zeros((m, k), dtype=dtype, device=card)
+            assert i8.int8_wdot_shape(x, q) == "skinny"
+    for m in (17, 129, 2048):
+        x = torch.zeros((m, k), dtype=torch.bfloat16, device=card)
+        assert i8.int8_wdot_shape(x, q) == "tensor_cores"
+        assert i8.int8_wdot_shape(x.float(), q) == "tiled"
 
 
 def _cache(rng, b, max_len, kv, d, dev):

@@ -24,6 +24,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "k5_compare.py")
 
 
 def _blocked(module: str) -> bool:
