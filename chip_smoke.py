@@ -84,6 +84,7 @@ False), so float32 products are full float32.
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import math
@@ -947,11 +948,48 @@ def call_us(torch, fn, calls: int = 200) -> float:
     return 1e6 * (time.perf_counter() - t0) / calls
 
 
+def host_us(torch, fn, calls: int = 20) -> float:
+    """Host time of one call in microseconds: ``calls`` calls back to
+    back, timed without waiting for the card (what each call costs the
+    host to enqueue; the card's queue holds them all)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * seconds / calls
+
+
 def same_bytes(torch, got, want) -> bool:
     """int8 codes equal, f32 scales bytes equal."""
     if got.dtype == torch.int8:
         return want.dtype == torch.int8 and bool(torch.equal(got, want))
     return bits_equal(torch, got, want)
+
+
+def graph_ms(torch, calls, replays: int = 3) -> float:
+    """Device time of one call: the thunks ``calls`` captured in order in
+    a CUDA graph, replayed between CUDA events, so no host time lies
+    between launches; the median of ``replays`` replays, per call."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    del graph
+    return sorted(times)[len(times) // 2]
 
 
 def cold_ms(torch, fn, operand, min_calls: int = 8,
@@ -969,29 +1007,16 @@ def cold_ms(torch, fn, operand, min_calls: int = 8,
     for c in copies[:2]:   # warm-up (a library call may set itself up)
         fn(c)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(calls):
-            fn(copies[i % len(copies)])
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph, copies
+    ms = graph_ms(torch, [lambda c=copies[i % len(copies)]: fn(c)
+                          for i in range(calls)], replays)
+    del copies
     # a library call captured in the graph leaves its workspace cached for
     # the capture stream: let it go with the graph
     clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
     if clear is not None:
         clear()
     torch.cuda.empty_cache()
-    return sorted(times)[len(times) // 2]
+    return ms
 
 
 def int8pack_mm(torch, x, q_t, scale):
@@ -1871,32 +1896,195 @@ def bits_equal(torch, a, b) -> bool:
             and bool(torch.equal(a.view(torch.int32), b.view(torch.int32))))
 
 
+# K1's lanes (source / set or add) and the bytes each moves an element:
+# the source read, dst read by an add, dst written
+FOLD_LANES = {"f32/set": 8, "bf16/set": 6, "int8/set": 5,
+              "f32/add": 12, "bf16/add": 10, "int8/add": 9}
+FOLD_SCALE = 0.0123       # the int8 rows' dequantize scale
+# the per-tensor close's one-row calls: llama_350m's largest tensor (the
+# embedding) and its smallest (a norm)
+ONE_ROWS = {"embedding": 32_768_000, "norm": 1024}
+
+
+def fold_store(torch, shapes, gen):
+    """The llama_350m store packed into DEVICE_STRIPES slabs as the flat
+    close packs it (core.arena.PackingTable, alignment 1): the table,
+    the stripes in use, random f32 slabs, and one flat source of every
+    tensor back to back a source type (f32; its bf16 rounding; random
+    int8 codes)."""
+    from parameter_server_distributed_tpu_torch.core.arena import \
+        PackingTable
+
+    table = PackingTable({n: torch.empty(s, device="meta")
+                          for n, s in shapes.items()}, DEVICE_STRIPES, 1)
+    stripes = [s for s in range(table.stripes) if table.stripe_sizes[s]]
+    dst = {s: torch.randn(table.stripe_sizes[s], generator=gen,
+                          device="cuda") for s in stripes}
+    src32 = torch.randn(table.total_elems, generator=gen, device="cuda")
+    sources = {"f32": src32, "bf16": src32.bfloat16(),
+               "int8": torch.randint(-127, 128, (table.total_elems,),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int8)}
+    return table, stripes, dst, sources
+
+
+def store_rows(mod, table, stripes, src, dsts) -> list:
+    """Every tensor of the store one fold row of ``mod`` (an
+    ops.device_apply), read back to back from ``src`` into its slab."""
+    out, off = [], 0
+    for s in stripes:
+        for name in table.stripe_names[s]:
+            e = table.entries[name]
+            out.append(mod.Segment(dsts[s], e.offset, src, off, e.length,
+                                   FOLD_SCALE))
+            off += e.length
+    return out
+
+
+def vector_path(np, mod, rows) -> dict:
+    """How many rows and elements of a fold launch over ``rows`` take the
+    vector path, from the library's own plan (``mod.fold_plan``)."""
+    first, plan = mod.fold_plan(rows)
+    n = np.array([r.n for r in rows], np.int64)
+    vec = (plan & mod.PLAN_VECTOR) != 0
+    elems = 4 * ((n - (plan & 3)) // 4)
+    return {"rows": len(rows), "vector_rows": int(vec.sum()),
+            "elements": int(n.sum()),
+            "vector_elements": int(elems[vec].sum()),
+            "spans": int(first[-1])}
+
+
+def time_fold_scale(torch, mod, table, stripes, dst, sources) -> dict:
+    """K1 and K2 of ``mod`` (an ops.device_apply module), each one
+    launch a call: K1 in
+    every lane over the store (219 rows into the slabs), and the f32 and
+    bf16 add lanes on one row of each ONE_ROWS size; K2 over the 8
+    slabs and over the 219 tensors as the per-tensor close's
+    ``scale_means`` gives them.  Device ms from a CUDA graph of the
+    calls (``graph_ms``: an eager event time would count the host time
+    of a 219-row call before its launch).
+    Host microseconds a call (``host_us``) of the norm-sized and 219-row
+    calls, of the norm-sized fold's C entry point alone (the table's
+    plan and the launch, arguments built beforehand), and for the
+    norm-sized calls ``call_us`` too (as K5 has: the larger of the
+    host's and the card's time a call).  Inputs are changed."""
+    out = {"fold": {}, "fold_one_row": {}, "fold_host_us": {},
+           "fold_call_us": {}, "scale": {}, "scale_host_us": {},
+           "scale_call_us": {}}
+    for lane in FOLD_LANES:
+        kind, op = lane.split("/")
+        rows = store_rows(mod, table, stripes, sources[kind], dst)
+        call = (lambda rows=rows, add=op == "add":
+                mod.fold_segments(rows, add))
+        call()
+        out["fold"][lane] = graph_ms(torch, [call] * 5)
+    rows = store_rows(mod, table, stripes, sources["f32"], dst)
+    out["fold_host_us"]["f32/add/store"] = host_us(
+        torch, lambda: mod.fold_segments(rows, True))
+    big = max(ONE_ROWS.values())
+    row_dst = torch.randn(big, device="cuda")
+    for kind in ("f32", "bf16"):
+        src = sources[kind][:big]
+        for name, n in ONE_ROWS.items():
+            one = [mod.Segment(row_dst, 0, src, 0, n)]
+            call = (lambda one=one: mod.fold_segments(one, True))
+            key = f"{kind}/add/{name}"
+            out["fold_one_row"][key] = graph_ms(torch, [call] * 20)
+            if n < 1 << 20:
+                out["fold_host_us"][key] = host_us(torch, call)
+                out["fold_call_us"][key] = call_us(torch, call)
+    out["fold_host_us"]["c_entry/f32/add/norm"] = fold_entry_us(
+        torch, mod, row_dst, sources["f32"])
+    inv = 0.5
+    slabs = [(dst[s], inv) for s in stripes]
+    per_tensor = [(dst[s][e.offset:e.offset + e.length], inv)
+                  for s in stripes for e in map(table.entries.get,
+                                                table.stripe_names[s])]
+    norm = [(row_dst[:ONE_ROWS["norm"]], inv)]
+    for key, part, calls in (("slabs", slabs, 5),
+                             ("tensors_219", per_tensor, 5),
+                             ("norm", norm, 200)):
+        call = (lambda part=part: mod.scale_mean(part))
+        call()
+        out["scale"][key] = graph_ms(torch, [call] * calls)
+    out["scale_host_us"]["norm"] = host_us(torch,
+                                           lambda: mod.scale_mean(norm))
+    out["scale_call_us"]["norm"] = call_us(torch,
+                                           lambda: mod.scale_mean(norm))
+    out["scale_host_us"]["tensors_219"] = host_us(
+        torch, lambda: mod.scale_mean(per_tensor))
+    return out
+
+
+def fold_entry_us(torch, mod, dst, src) -> float:
+    """Host microseconds a call of ``mod``'s C entry point alone (the
+    table's plan and the launch, its arguments built beforehand): one
+    norm-sized f32 add row of ``src`` into ``dst``."""
+    fn = mod._lib().psdt_fold_segments
+    args = [ctypes.c_longlong(dst.data_ptr()),
+            ctypes.c_longlong(src.data_ptr()),
+            ctypes.c_longlong(ONE_ROWS["norm"]), ctypes.c_float(1.0)]
+    stream = torch.cuda.current_stream().cuda_stream
+    return host_us(torch, lambda: fn(*map(ctypes.addressof, args), 1, 0, 1,
+                                     stream))
+
+
+def time_yardsticks(torch, sources, n: int) -> dict:
+    """One PyTorch call over the same bytes as each K1 lane over the
+    store (into one flat f32 tensor of ``n`` elements), and ``mul_`` for
+    K2, timed as ``time_fold_scale`` times the kernels (a CUDA graph);
+    None for a call this torch refuses.  The int8 add's ``add_(q,
+    alpha=scale)`` may round otherwise than the kernel: a yardstick of
+    time only."""
+    flat = torch.randn(n, device="cuda")
+    q = sources["int8"]
+    calls = {
+        "f32/set": lambda: flat.copy_(sources["f32"]),
+        "bf16/set": lambda: flat.copy_(sources["bf16"]),
+        "int8/set": lambda: torch.mul(q, FOLD_SCALE, out=flat),
+        "f32/add": lambda: flat.add_(sources["f32"]),
+        "bf16/add": lambda: flat.add_(sources["bf16"]),
+        "int8/add": lambda: flat.add_(q, alpha=FOLD_SCALE),
+        "scale": lambda: flat.mul_(0.5)}
+    out = {}
+    for key, call in calls.items():
+        try:
+            call()
+            out[key] = graph_ms(torch, [call] * 5)
+        except RuntimeError as exc:   # a call this torch refuses
+            out[key] = None
+            emit({"phase": "yardstick_refused", "lane": key,
+                  "error": str(exc)[:200]})
+    del flat
+    return out
+
+
 def check_device_apply(torch, np, shapes, gen) -> tuple[dict, dict]:
     """The four kernels of csrc/device_apply.cu against their plain
     versions on the card, bytes equal, at the llama_350m store's shapes
     (336,118,784 f32 elements packed into 8 stripe slabs by
     core.arena.PackingTable): fold_segments for each source (f32, bf16,
-    int8) and lane (set, add), every tensor one row, in one launch;
-    scale_mean over the 8 slabs in one launch; sharded_update for each
-    of the five rules over the 8 slabs in one launch (AdamW's and Lion's
-    decay lanes the table's prefixes); topk_scatter of the embedding
-    (32.8M elements) at the codec's default density, also against the
-    host codec's decode.  Then each timed beside its plain version, its
-    bound (bytes / 3.35 TB/s) and one PyTorch call over the same bytes
-    (``add_``, ``mul_``, ``torch.optim``'s fused step; none for Lion and
-    the top-k scatter).  Returns (max_abs_err, times) by kernel name."""
+    int8) and lane (set, add), every tensor one row, in one launch, with
+    every row on the vector path (the library's own plan says so);
+    scale_mean over the 8 slabs in one launch and over the 219 tensors
+    in one; sharded_update for each of the five rules over the 8 slabs
+    in one launch (AdamW's and Lion's decay lanes the table's prefixes);
+    topk_scatter of the embedding (32.8M elements) at the codec's
+    default density, also against the host codec's decode.  Then each
+    timed beside its plain version, its bound (bytes / 3.35 TB/s) and
+    one PyTorch call over the same bytes (every K1 lane its own, see
+    ``time_fold_scale``; ``mul_``; ``torch.optim``'s fused step; none
+    for Lion and the top-k scatter).  Returns (max_abs_err, times) by
+    kernel name; fold_segments' times carry the other five lanes under
+    ``lanes``."""
     from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
         import ShardedDeviceOptimizer
     from parameter_server_distributed_tpu_torch.core import device_apply
-    from parameter_server_distributed_tpu_torch.core.arena import \
-        PackingTable
     from parameter_server_distributed_tpu_torch.ops import device_apply as da
     from parameter_server_distributed_tpu_torch.rpc import codec
 
-    table = PackingTable({n: torch.empty(s, device="meta")
-                          for n, s in shapes.items()}, DEVICE_STRIPES, 1)
+    table, stripes, dst, sources = fold_store(torch, shapes, gen)
     n = table.total_elems
-    stripes = [s for s in range(table.stripes) if table.stripe_sizes[s]]
 
     def slabs(abs_=False):
         return {s: (lambda x: x.abs() if abs_ else x)(torch.randn(
@@ -1912,26 +2100,20 @@ def check_device_apply(torch, np, shapes, gen) -> tuple[dict, dict]:
     def err(a, b) -> float:
         return max(float((a[s] - b[s]).abs().max()) for s in a)
 
-    max_err, times, report = {}, {}, {}
-    # fold_segments: all 219 tensors from one flat source into the slabs
-    dst = slabs()
-    src32 = torch.randn(n, generator=gen, device="cuda")
-    sources = {"f32": src32, "bf16": src32.bfloat16(),
-               "int8": torch.randint(-127, 128, (n,), generator=gen,
-                                     device="cuda", dtype=torch.int8)}
-
     def rows(src, dsts):
-        out, off = [], 0
-        for s in stripes:
-            for name in table.stripe_names[s]:
-                e = table.entries[name]
-                out.append(da.Segment(dsts[s], e.offset, src, off, e.length,
-                                      0.0123))
-                off += e.length
-        return out
+        return store_rows(da, table, stripes, src, dsts)
 
-    worst, checks = 0.0, {}
+    def per_tensor(dsts, inv):
+        return [(dsts[s][e.offset:e.offset + e.length], inv)
+                for s in stripes
+                for e in map(table.entries.get, table.stripe_names[s])]
+
+    max_err, times, report = {}, {}, {}
+    # fold_segments: every lane, all 219 tensors from one flat source into
+    # the slabs in one launch, and which rows the plan vectorises
+    worst, checks, vector = 0.0, {}, {}
     for kind, src in sources.items():
+        vector[kind] = vector_path(np, da, rows(src, dst))
         for add in (False, True):
             got, want = clone(dst), clone(dst)
             before = da.launches["fold_segments"]
@@ -1944,41 +2126,70 @@ def check_device_apply(torch, np, shapes, gen) -> tuple[dict, dict]:
                 fail("fold_segments took more than one launch for the store")
     del got, want
     max_err["fold_segments"] = worst
-    got, want = clone(dst), clone(dst)
-    k_rows, p_rows = rows(src32, got), rows(src32, want)
-    flat = torch.randn(n, generator=gen, device="cuda")
-    ms = cuda_ms(torch, lambda: da.fold_segments(k_rows, True), iters=10)
+    bad = {k: v for k, v in vector.items() if v["vector_rows"] != v["rows"]}
+    if bad:
+        fail(f"llama_350m rows left off the fold's vector path: {bad}")
+    # scale_mean: the 8 slabs in one launch, the 219 tensors in one
+    inv = device_apply.inverse_count(2)
+    worst, ok = 0.0, True
+    for pick in (lambda d: [(d[s], inv) for s in stripes],
+                 lambda d: per_tensor(d, inv)):
+        got, want = clone(dst), clone(dst)
+        da.scale_mean(pick(got))
+        da.scale_mean_reference(pick(want))
+        torch.cuda.synchronize()
+        ok = ok and same(got, want)
+        worst = max(worst, err(got, want))
+    del got, want
+    checks["scale"] = ok
+    max_err["scale_mean"] = worst
+    # both timed beside their bounds, their plain versions and one PyTorch
+    # call over the same bytes (K1 in every lane)
+    t = time_fold_scale(torch, da, table, stripes, dst, sources)
+    yard = time_yardsticks(torch, sources, n)
+    lanes = {}
+    for lane, nbytes in FOLD_LANES.items():
+        b_ms, b_by = bound(n, nbytes * n, "float32")
+        lanes[lane] = dict(ms=t["fold"][lane], bound_ms=b_ms, bound_by=b_by,
+                           library_ms=yard[lane],
+                           share_of_bound=b_ms / t["fold"][lane])
+    p_rows = rows(sources["f32"], clone(dst))
     plain = cuda_ms(torch, lambda: da.fold_segments_reference(p_rows, True),
                     iters=3)
-    library = cuda_ms(torch, lambda: flat.add_(src32), iters=10)
-    b_ms, b_by = bound(n, 12 * n, "float32")
-    times["fold_segments"] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                                  bound_ms=b_ms, bound_by=b_by)
-    report["fold_segments"] = {"bits_equal": checks, "rows": len(k_rows),
-                               "library": "Tensor.add_ (one flat tensor)",
-                               **times["fold_segments"]}
-    del got, want, k_rows, p_rows, sources
-    # scale_mean: the 8 slabs in one launch
-    inv = device_apply.inverse_count(2)
-    got, want = clone(dst), clone(dst)
-    da.scale_mean([(got[s], inv) for s in stripes])
-    da.scale_mean_reference([(want[s], inv) for s in stripes])
-    torch.cuda.synchronize()
-    ok = same(got, want)
-    max_err["scale_mean"] = err(got, want)
-    ms = cuda_ms(torch, lambda: da.scale_mean([(got[s], inv)
-                                               for s in stripes]), iters=10)
-    plain = cuda_ms(torch, lambda: da.scale_mean_reference(
-        [(want[s], inv) for s in stripes]), iters=3)
-    library = cuda_ms(torch, lambda: flat.mul_(inv), iters=10)
+    del p_rows
+    head = lanes["f32/add"]
+    times["fold_segments"] = dict(
+        ms=head["ms"], plain_ms=plain, library_ms=head["library_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        lanes={k: v for k, v in lanes.items() if k != "f32/add"})
+    one_row = {key: dict(ms=ms, bound_ms=bound(
+        n_row, FOLD_LANES[key.rsplit("/", 1)[0]] * n_row, "float32")[0])
+        for key, ms in t["fold_one_row"].items()
+        for n_row in [ONE_ROWS[key.rsplit("/", 1)[1]]]}
+    report["fold_segments"] = {
+        "bits_equal": {k: v for k, v in checks.items() if "/" in k},
+        "rows": len(rows(sources["f32"], dst)), "vector_path": vector,
+        "lanes": lanes, "one_row": one_row, "host_us": t["fold_host_us"],
+        "call_us": t["fold_call_us"], "plain_ms": plain,
+        "library": "one PyTorch call over one flat tensor: copy_ (f32, "
+                   "bf16 set), mul(out=) (int8 set), add_ (adds; int8 "
+                   "with alpha=scale, which may round otherwise)"}
+    del sources
+    s_plain = [(x.clone(), inv) for x in dst.values()]
+    plain = cuda_ms(torch, lambda: da.scale_mean_reference(s_plain), iters=3)
+    del s_plain
     b_ms, b_by = bound(n, 8 * n, "float32")
-    times["scale_mean"] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                               bound_ms=b_ms, bound_by=b_by)
+    times["scale_mean"] = dict(ms=t["scale"]["slabs"], plain_ms=plain,
+                               library_ms=yard["scale"], bound_ms=b_ms,
+                               bound_by=b_by)
     report["scale_mean"] = {"bits_equal": {"scale": ok},
                             "library": "Tensor.mul_ (one flat tensor)",
+                            "tensors_219_ms": t["scale"]["tensors_219"],
+                            "norm_ms": t["scale"]["norm"],
+                            "host_us": t["scale_host_us"],
+                            "call_us": t["scale_call_us"],
                             **times["scale_mean"]}
-    checks["scale"] = ok
-    del got, want, dst, src32
+    del dst
     torch.cuda.empty_cache()
     # sharded_update: each rule over the 8 slabs in one launch
     worst, by_rule = 0.0, {}
@@ -3115,6 +3326,8 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
+        if "lanes" in t:
+            entry["lanes"] = t["lanes"]
         kernels.append(entry)
     # the device close's kernels run on the device-close paths only, the
     # int8 serving kernels on serve_int8 only

@@ -22,16 +22,18 @@
 //  - topk_scatter: _topk_scatter (:498) and device_unpack's top-k lane.
 //
 // What bounds them on this card: bytes.  Each element does at most ~15
-// flops against 8 (scale) to 28 (Adam) bytes moved, far below the
-// card's ~295 flops per byte.  The designs are simple sweeps that keep
-// every block busy whatever the row sizes (speed is later work): the fold
-// and the scale lay their table's rows end to end and hand out chunks of
-// ROW_CHUNK elements (a row of 32.8M elements and one of 1,024 spread
-// over the card alike); the update reuses fused_update.cu's chunked table
-// (ops/fused_update.py plan), with float4 accesses where every operand is
-// 16-byte aligned; the top-k decode gives each block whole chunks of the
-// output, zeroed and then scattered into after a block barrier, so it
-// needs no separate fill.
+// flops against 5 (an int8 set) to 28 (Adam) bytes moved, far below the
+// card's ~295 flops per byte, so each kernel is as fast as its stream of
+// bytes.  The fold and the scale share one sweep built for that (see
+// "the fold and scale" below): 16-byte accesses of dst, the source read
+// in whole vectors, every load of a thread's step in flight before its
+// first store, a block a span of one row (no search per element, 32-bit
+// indices inside the span) and alignment planned per row on the host, so
+// the llama_350m store's 219 rows all run the vector path.  The update
+// reuses fused_update.cu's chunked table (ops/fused_update.py plan), with
+// float4 accesses where every operand is 16-byte aligned; the top-k
+// decode gives each block whole chunks of the output, zeroed and then
+// scattered into after a block barrier, so it needs no separate fill.
 
 #include <cuda_runtime.h>
 
@@ -46,24 +48,68 @@ constexpr int MAX_TENSORS = 256;    // tensors in one update table
 constexpr int MAX_CHUNKS = 16384;   // blocks in one update launch
 constexpr int OPERANDS = 5;         // p, g, out, s0, s1
 
-// ------------------------------------------------------------- the fold
-// A table's rows are laid end to end: row r holds elements [start[r],
-// start[r+1]) of that virtual sequence.  Block b takes chunks b, b +
-// gridDim.x, ... of ROW_CHUNK elements of it, so a 32.8M-element row and
-// a 1,024-element one spread over the card alike; a chunk inside one row
-// (the usual case) runs a plain unrolled sweep, a chunk across rows finds
-// each element's row as it goes.
-constexpr int ROW_CHUNK = 4096;
+// ---------------------------------------------------- the fold and scale
+// One streaming sweep serves both.  Each row of a table is cut into spans
+// of SPAN elements and each span is one block's work: a 1,024-element row
+// is one block, the 32.8M-element embedding 4,000, and a block finds its
+// span's row once (row_of over the rows' first spans).  Inside a row the
+// sweep runs vectors of 4 elements: the row's first `head` elements (0-3)
+// bring dst to a 16-byte boundary, then vector i is elements head + 4i ..
+// head + 4i + 3, one 16-byte access of dst and one 16-byte (f32), 8-byte
+// (bf16) or 4-byte (int8) load of its source.  A span is one step of its
+// block: each thread takes UNROLL vectors THREADS apart, so a warp's every
+// access is 512 consecutive bytes of dst, and issues all of its loads
+// before its first store (the pointers are __restrict__).  One step a
+// block, 32 KB of dst (PERF.md section 6): 16K or 64K spans in steps of
+// 4 vectors ran every lane 2-6 % slower; 16K spans in one step of 16 ran
+// the f32 add 0.3 % faster but spill registers in the f32 set; 4K spans
+// ran the scale 0.3 % faster and the int8 set 35 % slower (a step of 4
+// bytes a thread).  The head goes to the row's first span, the 0-3
+// elements past the last vector to its last span.  A row whose source is
+// not aligned for its vector load once dst is (a "scalar row") runs
+// element by element.  Every element is computed alone, by the same
+// arithmetic on every path.  The host plans the table (plan_rows);
+// psdt_fold_plan hands the plan out.  The table travels by value, and a
+// launch's host time grows with its parameter bytes, so a call of at most
+// SMALL_TABLE rows (the per-tensor close's) launches with a table of that
+// many rows.
+constexpr int SPAN = 8192;    // elements of a row one block takes
+constexpr int UNROLL = 8;     // vectors a thread has in flight a step
+constexpr int SMALL_TABLE = 16;
+static_assert(SPAN == 4 * UNROLL * THREADS, "a span is one step");
+static_assert(SPAN - 1 <= 0xffff, "a span's length fits `last`");
 
-struct Segments {
-  long long dst[MAX_SEGMENTS];   // float* of each row's first element
-  long long src[MAX_SEGMENTS];   // its source's first element
-  long long start[MAX_SEGMENTS + 1];  // prefix sums of the rows' lengths
-  float scale[MAX_SEGMENTS];     // int8 rows: the dequantize scale
+template <int R>
+struct Table {
+  long long dst[R];        // float* of each row's first element
+  long long src[R];        // its source's first element (fold)
+  int first[R + 1];        // each row's first span; [rows]: all of them
+  unsigned short last[R];  // elements in the row's last span, less one
+  unsigned char plan[R];   // head (bits 0-1), vector row (bit 2)
+  float scale[R];          // int8: the dequantize scale; the scale: inv
 };
-static_assert(sizeof(Segments) <= 32764, "fits the parameter space");
+static_assert(sizeof(Table<MAX_SEGMENTS>) + sizeof(int) <= 32764,
+              "fits the parameter space");
 
-enum SrcKind { SRC_F32 = 0, SRC_BF16 = 1, SRC_INT8 = 2 };
+// SRC_NONE: the scale's rows, which have no source
+enum SrcKind { SRC_F32 = 0, SRC_BF16 = 1, SRC_INT8 = 2, SRC_NONE = 3 };
+enum Op { SET = 0, ADD = 1, SCALE = 2 };
+constexpr int PLAN_VECTOR = 4;
+
+// Bytes of one source element, and of the 4 that one vector loads.
+__host__ __device__ constexpr int elem_bytes(int kind) {
+  return kind == SRC_F32 ? 4 : kind == SRC_BF16 ? 2 : 1;
+}
+
+template <int KIND> struct Vec4 { using T = float4; };  // f32 (and none)
+template <> struct Vec4<SRC_BF16> { using T = uint2; };
+template <> struct Vec4<SRC_INT8> { using T = unsigned; };
+
+// The source is read once and dst read and written once: plain accesses
+// (the evict-first hints measured no faster, PERF.md section 6).
+template <class T>
+__device__ __forceinline__ T load_once(const T* p) { return *p; }
+__device__ __forceinline__ void store_out(float4* p, float4 v) { *p = v; }
 
 template <int KIND>
 __device__ __forceinline__ float source(const void* src, long long j,
@@ -83,10 +129,14 @@ __device__ __forceinline__ float source(const void* src, long long j,
   }
 }
 
-template <int KIND, bool ADD>
-__device__ __forceinline__ void fold_one(float* dst, const void* src,
-                                         long long k, float scale) {
-  if constexpr (ADD) {
+// One element of a scalar path.
+template <int KIND, int OP>
+__device__ __forceinline__ void sweep_one(float* __restrict__ dst,
+                                          const void* __restrict__ src,
+                                          long long k, float scale) {
+  if constexpr (OP == SCALE) {
+    dst[k] = __fmul_rn(dst[k], scale);
+  } else if constexpr (OP == ADD) {
     dst[k] = __fadd_rn(dst[k], source<KIND>(src, k, scale));
   } else if constexpr (KIND == SRC_F32) {
     // the set lane of an f32 source is a bit copy (np.array(g))
@@ -97,97 +147,191 @@ __device__ __forceinline__ void fold_one(float* dst, const void* src,
   }
 }
 
-// The row holding element lo of the virtual sequence: the last r with
-// start[r] <= lo (uniform over the block).
-__device__ __forceinline__ int row_of(const long long* start, int rows,
-                                      long long lo) {
+// Four source elements as f32, each as source() gives it.
+template <int KIND>
+__device__ __forceinline__ float4 widen(typename Vec4<KIND>::T v,
+                                        float scale) {
+  if constexpr (KIND == SRC_BF16) {
+    return make_float4(__uint_as_float(v.x << 16),
+                       __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16),
+                       __uint_as_float(v.y & 0xffff0000u));
+  } else if constexpr (KIND == SRC_INT8) {
+    // each byte sign-extended (little-endian: element 0 is the low byte)
+    const int w = static_cast<int>(v);
+    return make_float4(__fmul_rn(__int2float_rn((w << 24) >> 24), scale),
+                       __fmul_rn(__int2float_rn((w << 16) >> 24), scale),
+                       __fmul_rn(__int2float_rn((w << 8) >> 24), scale),
+                       __fmul_rn(__int2float_rn(w >> 24), scale));
+  } else {
+    return v;
+  }
+}
+
+// One vector of dst from its old value d and its source s.  A set moves
+// the f32 source's bits untouched.
+template <int KIND, int OP>
+__device__ __forceinline__ float4 combine(float4 d,
+                                          typename Vec4<KIND>::T s,
+                                          float scale) {
+  if constexpr (OP == SCALE) {
+    return make_float4(__fmul_rn(d.x, scale), __fmul_rn(d.y, scale),
+                       __fmul_rn(d.z, scale), __fmul_rn(d.w, scale));
+  } else {
+    const float4 v = widen<KIND>(s, scale);
+    if constexpr (OP == ADD)
+      return make_float4(__fadd_rn(d.x, v.x), __fadd_rn(d.y, v.y),
+                         __fadd_rn(d.z, v.z), __fadd_rn(d.w, v.w));
+    else
+      return v;
+  }
+}
+
+// The row holding span s: the last r with first[r] <= s (uniform over the
+// block; a row of no elements has no span and is never chosen).
+__device__ __forceinline__ int row_of(const int* first, int rows, int s) {
   int a = 0, b = rows - 1;
   while (a < b) {
     const int mid = (a + b + 1) >> 1;
-    if (start[mid] <= lo) a = mid;
+    if (first[mid] <= s) a = mid;
     else b = mid - 1;
   }
   return a;
 }
 
-template <int KIND, bool ADD>
+template <int KIND, int OP, int R>
 __global__ void __launch_bounds__(THREADS)
-fold_segments_kernel(const __grid_constant__ Segments t, int rows) {
-  const long long total = t.start[rows];
-  const long long chunks = (total + ROW_CHUNK - 1) / ROW_CHUNK;
-  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
-    const long long lo = c * ROW_CHUNK;
-    const long long hi = min(lo + ROW_CHUNK, total);
-    int r = row_of(t.start, rows, lo);
-    if (t.start[r + 1] >= hi) {
-      float* dst = reinterpret_cast<float*>(t.dst[r]);
-      const void* src = reinterpret_cast<const void*>(t.src[r]);
-      const long long base = t.start[r];
-      const float scale = t.scale[r];
+sweep_kernel(const __grid_constant__ Table<R> t, int rows) {
+  using V = typename Vec4<KIND>::T;
+  constexpr int ELEM = elem_bytes(KIND);
+  // The grid has a block a span, so both loops below run once.  Written
+  // as loops, the f32 add compiles to 88 registers (2 blocks an SM);
+  // written straight, to 80 (3 blocks), and the f32 add ran 2.0-2.3 %
+  // slower, the other lanes within 0.5 % (PERF.md section 6).
+  const int spans = t.first[rows];
+  for (int s = blockIdx.x; s < spans; s += gridDim.x) {
+    const int r = row_of(t.first, rows, s);
+    const int k = s - t.first[r];
+    const bool last_span = s + 1 == t.first[r + 1];
+    const long long n =
+        static_cast<long long>(t.first[r + 1] - t.first[r] - 1) * SPAN +
+        t.last[r] + 1;
+    const long long lo = static_cast<long long>(k) * SPAN;
+    float* __restrict__ dst = reinterpret_cast<float*>(t.dst[r]);
+    const char* __restrict__ src = reinterpret_cast<const char*>(t.src[r]);
+    const float scale = t.scale[r];
+    const int plan = t.plan[r];
+    if (!(plan & PLAN_VECTOR)) {
+      const int len = last_span ? t.last[r] + 1 : SPAN;
 #pragma unroll 4
-      for (long long j = lo + threadIdx.x; j < hi; j += THREADS)
-        fold_one<KIND, ADD>(dst, src, j - base, scale);
+      for (int j = threadIdx.x; j < len; j += THREADS)
+        sweep_one<KIND, OP>(dst, src, lo + j, scale);
       continue;
     }
-    for (long long j = lo + threadIdx.x; j < hi; j += THREADS) {
-      while (j >= t.start[r + 1]) ++r;
-      fold_one<KIND, ADD>(reinterpret_cast<float*>(t.dst[r]),
-                          reinterpret_cast<const void*>(t.src[r]),
-                          j - t.start[r], t.scale[r]);
+    const int head = plan & 3;
+    const long long nv = (n - head) >> 2;   // whole vectors of the row
+    const long long v0 = lo >> 2;           // the span's first vector
+    const int cnt = static_cast<int>(
+        min(static_cast<long long>(SPAN / 4), nv - v0));
+    float4* __restrict__ d4 = reinterpret_cast<float4*>(dst + head) + v0;
+    const V* __restrict__ s4 =
+        OP == SCALE ? nullptr
+                    : reinterpret_cast<const V*>(src + head * ELEM) + v0;
+    // one step: SPAN / 4 == UNROLL * THREADS
+    for (int i = threadIdx.x; i < cnt; i += UNROLL * THREADS) {
+      V sv[UNROLL];
+      float4 dv[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = i + u * THREADS;
+        if (j < cnt) {
+          if constexpr (OP != SCALE) sv[u] = load_once(s4 + j);
+          if constexpr (OP != SET) dv[u] = load_once(d4 + j);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = i + u * THREADS;
+        if (j < cnt) store_out(d4 + j, combine<KIND, OP>(dv[u], sv[u],
+                                                         scale));
+      }
     }
+    if (k == 0 && static_cast<int>(threadIdx.x) < head)
+      sweep_one<KIND, OP>(dst, src, threadIdx.x, scale);
+    const long long tail = head + 4 * nv;
+    if (last_span && threadIdx.x < n - tail)
+      sweep_one<KIND, OP>(dst, src, tail + threadIdx.x, scale);
   }
 }
 
-template <int KIND, bool ADD>
-int launch_fold(const long long* dst, const long long* src,
-                const long long* n, const float* scale, int rows,
-                int grid, void* stream) {
-  if (rows < 0 || rows > MAX_SEGMENTS || grid < 1)
-    return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
-  Segments t;
+// Plans rows into t: each row's spans, the length of its last, its head
+// (the elements before dst's first 16-byte boundary, at most n) and
+// whether it is a vector row (its source, past the head, aligned for the
+// 4-element load; the scale's rows always are).  Returns cudaSuccess, or
+// cudaErrorInvalidValue for a negative length, a dst not 4-byte aligned
+// or more spans than an int counts.
+template <int R>
+int plan_rows(Table<R>& t, const long long* dst, const long long* src,
+              const long long* n, int rows, int kind) {
+  long long spans = 0;
+  for (int r = 0; r < rows; ++r) {
+    if (n[r] < 0 || dst[r] % 4) return cudaErrorInvalidValue;
+    t.first[r] = static_cast<int>(spans);
+    const long long cnt = (n[r] + SPAN - 1) / SPAN;
+    if (cnt) t.last[r] = static_cast<unsigned short>(n[r] - (cnt - 1) * SPAN
+                                                     - 1);
+    spans += cnt;
+    if (spans > 0x7fffffff) return cudaErrorInvalidValue;
+    const long long head = n[r] < ((-dst[r]) & 15) / 4 ? n[r]
+                                                        : ((-dst[r]) & 15) / 4;
+    const bool vec = kind == SRC_NONE ||
+                     (src[r] + head * elem_bytes(kind)) %
+                             (4 * elem_bytes(kind)) == 0;
+    t.plan[r] = static_cast<unsigned char>(head | (vec ? PLAN_VECTOR : 0));
+  }
+  t.first[rows] = static_cast<int>(spans);
+  return cudaSuccess;
+}
+
+// Plans and launches one sweep over `rows` rows (src unread by the
+// scale) in a table of R rows: a block a span.
+template <int KIND, int OP, int R>
+int launch_table(const long long* dst, const long long* src,
+                 const long long* n, const float* scale, int rows,
+                 void* stream) {
+  Table<R> t;
   std::memset(&t, 0, sizeof(t));
+  const int err = plan_rows(t, dst, src, n, rows, KIND);
+  if (err) return err;
   std::memcpy(t.dst, dst, rows * sizeof(long long));
-  std::memcpy(t.src, src, rows * sizeof(long long));
+  if (OP != SCALE) std::memcpy(t.src, src, rows * sizeof(long long));
   std::memcpy(t.scale, scale, rows * sizeof(float));
-  for (int r = 0; r < rows; ++r) t.start[r + 1] = t.start[r] + n[r];
-  fold_segments_kernel<KIND, ADD>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(t, rows);
+  const int spans = t.first[rows];
+  if (spans == 0) return cudaSuccess;
+  sweep_kernel<KIND, OP, R><<<spans, THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(t, rows);
   return cudaGetLastError();
 }
 
-// ------------------------------------------------------------ the scale
-struct Scales {
-  long long ptr[MAX_SEGMENTS];   // float* of each row
-  long long start[MAX_SEGMENTS + 1];
-  float inv[MAX_SEGMENTS];       // np.float32(1.0 / count), host-rounded
-};
-static_assert(sizeof(Scales) <= 32764, "fits the parameter space");
+template <int KIND, int OP>
+int launch_sweep(const long long* dst, const long long* src,
+                 const long long* n, const float* scale, int rows,
+                 void* stream) {
+  if (rows < 0 || rows > MAX_SEGMENTS) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  return rows <= SMALL_TABLE
+             ? launch_table<KIND, OP, SMALL_TABLE>(dst, src, n, scale, rows,
+                                                   stream)
+             : launch_table<KIND, OP, MAX_SEGMENTS>(dst, src, n, scale,
+                                                    rows, stream);
+}
 
-__global__ void __launch_bounds__(THREADS)
-scale_mean_kernel(const __grid_constant__ Scales t, int rows) {
-  const long long total = t.start[rows];
-  const long long chunks = (total + ROW_CHUNK - 1) / ROW_CHUNK;
-  for (long long c = blockIdx.x; c < chunks; c += gridDim.x) {
-    const long long lo = c * ROW_CHUNK;
-    const long long hi = min(lo + ROW_CHUNK, total);
-    int r = row_of(t.start, rows, lo);
-    if (t.start[r + 1] >= hi) {
-      float* x = reinterpret_cast<float*>(t.ptr[r]);
-      const long long base = t.start[r];
-      const float inv = t.inv[r];
-#pragma unroll 4
-      for (long long j = lo + threadIdx.x; j < hi; j += THREADS)
-        x[j - base] = __fmul_rn(x[j - base], inv);
-      continue;
-    }
-    for (long long j = lo + threadIdx.x; j < hi; j += THREADS) {
-      while (j >= t.start[r + 1]) ++r;
-      float* x = reinterpret_cast<float*>(t.ptr[r]);
-      const long long k = j - t.start[r];
-      x[k] = __fmul_rn(x[k], t.inv[r]);
-    }
-  }
+template <int KIND>
+int launch_fold(const long long* dst, const long long* src,
+                const long long* n, const float* scale, int rows, bool add,
+                void* stream) {
+  return add ? launch_sweep<KIND, ADD>(dst, src, n, scale, rows, stream)
+             : launch_sweep<KIND, SET>(dst, src, n, scale, rows, stream);
 }
 
 // ----------------------------------------------------------- the update
@@ -355,6 +499,8 @@ int launch_update(const long long* ops, const long long* n,
 }
 
 // ----------------------------------------------------------- the top-k
+constexpr int ROW_CHUNK = 4096;   // output elements a top-k block takes
+
 // out = +0.0 everywhere, the bf16 value kept at each index.  idx holds k
 // strictly ascending indices below total (the wrapper checks them).  A
 // block owns chunks of ROW_CHUNK output elements: it zeroes one, finds
@@ -392,56 +538,54 @@ topk_scatter_kernel(float* __restrict__ out, long long total,
 }  // namespace
 
 // The limits this build has: MAX_SEGMENTS, CHUNK, MAX_TENSORS, MAX_CHUNKS,
-// ROW_CHUNK (ops/device_apply.py checks them against its own).
+// ROW_CHUNK, SPAN (ops/device_apply.py checks them against its own).
 extern "C" void psdt_device_apply_limits(int* out) {
   out[0] = MAX_SEGMENTS;
   out[1] = CHUNK;
   out[2] = MAX_TENSORS;
   out[3] = MAX_CHUNKS;
   out[4] = ROW_CHUNK;
+  out[5] = SPAN;
+}
+
+// The plan of a fold (kind 0 f32, 1 bf16, 2 int8) over `rows` rows, as
+// its launch makes it: first[rows + 1] (each row's first span, then the
+// count) and plan[rows] (head | 4 for a vector row).  Returns the
+// cudaError_t.
+extern "C" int psdt_fold_plan(const long long* dst, const long long* src,
+                              const long long* n, int rows, int kind,
+                              int* first, unsigned char* plan) {
+  if (rows < 0 || rows > MAX_SEGMENTS || kind < SRC_F32 || kind > SRC_INT8)
+    return cudaErrorInvalidValue;
+  Table<MAX_SEGMENTS> t;
+  std::memset(&t, 0, sizeof(t));
+  const int err = plan_rows(t, dst, src, n, rows, kind);
+  if (err) return err;
+  std::memcpy(first, t.first, (rows + 1) * sizeof(int));
+  std::memcpy(plan, t.plan, rows);
+  return cudaSuccess;
 }
 
 // One fold launch over `rows` rows: dst/src addresses, n elements each,
 // scale (int8 rows); kind 0 f32, 1 bf16, 2 int8; add 0 = set, 1 = add.
-// `grid` blocks take the rows' ROW_CHUNK-element chunks in turn.  Returns
-// the cudaError_t.
+// Returns the cudaError_t.
 extern "C" int psdt_fold_segments(const long long* dst, const long long* src,
                                   const long long* n, const float* scale,
-                                  int rows, int kind, int add, int grid,
+                                  int rows, int kind, int add,
                                   void* stream) {
   if (kind == SRC_F32)
-    return add ? launch_fold<SRC_F32, true>(dst, src, n, scale, rows,
-                                            grid, stream)
-               : launch_fold<SRC_F32, false>(dst, src, n, scale, rows,
-                                             grid, stream);
+    return launch_fold<SRC_F32>(dst, src, n, scale, rows, add, stream);
   if (kind == SRC_BF16)
-    return add ? launch_fold<SRC_BF16, true>(dst, src, n, scale, rows,
-                                             grid, stream)
-               : launch_fold<SRC_BF16, false>(dst, src, n, scale, rows,
-                                              grid, stream);
+    return launch_fold<SRC_BF16>(dst, src, n, scale, rows, add, stream);
   if (kind == SRC_INT8)
-    return add ? launch_fold<SRC_INT8, true>(dst, src, n, scale, rows,
-                                             grid, stream)
-               : launch_fold<SRC_INT8, false>(dst, src, n, scale, rows,
-                                              grid, stream);
+    return launch_fold<SRC_INT8>(dst, src, n, scale, rows, add, stream);
   return cudaErrorInvalidValue;
 }
 
 // One in-place scale launch: x[0:n] *= inv for each row.
 extern "C" int psdt_scale_mean(const long long* ptr, const long long* n,
-                               const float* inv, int rows, int grid,
-                               void* stream) {
-  if (rows < 0 || rows > MAX_SEGMENTS || grid < 1)
-    return cudaErrorInvalidValue;
-  if (rows == 0) return cudaSuccess;
-  Scales t;
-  std::memset(&t, 0, sizeof(t));
-  std::memcpy(t.ptr, ptr, rows * sizeof(long long));
-  std::memcpy(t.inv, inv, rows * sizeof(float));
-  for (int r = 0; r < rows; ++r) t.start[r + 1] = t.start[r] + n[r];
-  scale_mean_kernel<<<grid, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(t, rows);
-  return cudaGetLastError();
+                               const float* inv, int rows, void* stream) {
+  return launch_sweep<SRC_NONE, SCALE>(ptr, ptr, n, inv, rows, stream);
 }
 
 // One update launch over a planned table (ops/fused_update.py plan):

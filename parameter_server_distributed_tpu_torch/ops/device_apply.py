@@ -33,6 +33,8 @@ root, which numpy and the card compute).
 
 from __future__ import annotations
 
+import array
+import contextlib
 import ctypes
 from typing import NamedTuple, Sequence
 
@@ -49,9 +51,11 @@ launches = {"fold_segments": 0, "scale_mean": 0, "sharded_update": 0,
             "topk_scatter": 0}
 
 MAX_SEGMENTS = 1024       # rows of one fold or scale launch
-ROW_CHUNK = 4096          # elements a fold / scale / top-k block takes
-MAX_GRID = 4096           # blocks of one fold / scale / top-k launch
+SPAN = 8192               # elements of a row one fold / scale block takes
+ROW_CHUNK = 4096          # output elements a top-k block takes
+MAX_GRID = 4096           # blocks of one top-k launch
 SRC_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+PLAN_VECTOR = 4           # a vector row's bit in psdt_fold_plan's plan
 RULES = ("sgd", "momentum", "adam", "adamw", "lion")
 RULE_SLOTS = {"sgd": 0, "momentum": 1, "adam": 2, "adamw": 2, "lion": 1}
 # bytes an update moves per element (p and g read, out written, each slot
@@ -182,20 +186,22 @@ def _lib() -> ctypes.CDLL:
         from . import build
 
         lib = build.load("device_apply")
-        limits = (ctypes.c_int * 5)()
+        limits = (ctypes.c_int * 6)()
         lib.psdt_device_apply_limits(limits)
         want = (MAX_SEGMENTS, fu.CHUNK, fu.MAX_TENSORS, fu.MAX_CHUNKS,
-                ROW_CHUNK)
+                ROW_CHUNK, SPAN)
         if tuple(limits) != want:
             raise RuntimeError(f"csrc/device_apply.cu limits "
                                f"{tuple(limits)} differ from {want}")
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.psdt_fold_segments.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-        lib.psdt_scale_mean.argtypes = [ptr] * 3 + [i32, i32, ptr]
+        lib.psdt_fold_plan.argtypes = [ptr] * 3 + [i32, i32, ptr, ptr]
+        lib.psdt_fold_segments.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        lib.psdt_scale_mean.argtypes = [ptr] * 3 + [i32, ptr]
         lib.psdt_sharded_update.argtypes = (
             [i32] + [ptr] * 6 + [i32, ptr, i32, ptr, ptr])
         lib.psdt_topk_scatter.argtypes = [ptr, i64, ptr, ptr, i64, i32, ptr]
-        for fn in (lib.psdt_fold_segments, lib.psdt_scale_mean,
+        for fn in (lib.psdt_fold_plan, lib.psdt_fold_segments,
+                   lib.psdt_scale_mean,
                    lib.psdt_sharded_update, lib.psdt_topk_scatter):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -206,13 +212,11 @@ def _device_of(tensors: Sequence[Tensor], what: str) -> torch.device | None:
     """None when every tensor lies on the CPU; the one CUDA device
     otherwise; raises for a mix."""
     devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        return None
     dev = next(iter(devices))
-    if len(devices) != 1 or dev.type != "cuda":
-        raise ValueError(f"{what}: operands must lie on one cuda device (or "
-                         f"all on the cpu), got {sorted(map(str, devices))}")
-    return dev
+    if len(devices) == 1 and dev.type in ("cpu", "cuda"):
+        return None if dev.type == "cpu" else dev
+    raise ValueError(f"{what}: operands must lie on one cuda device (or "
+                     f"all on the cpu), got {sorted(map(str, devices))}")
 
 
 def _check(cond: bool, what: str, msg: str) -> None:
@@ -221,8 +225,8 @@ def _check(cond: bool, what: str, msg: str) -> None:
 
 
 def _grid(total: int) -> int:
-    """Blocks of a fold, scale or top-k launch: one a ROW_CHUNK of the
-    elements, at most MAX_GRID (each then takes several in turn)."""
+    """Blocks of a top-k launch: one a ROW_CHUNK of the output, at most
+    MAX_GRID (each then takes several in turn)."""
     return max(1, min(-(-total // ROW_CHUNK), MAX_GRID))
 
 
@@ -230,6 +234,63 @@ def _launched(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     launches[name] += 1
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _on(dev: torch.device):
+    """A context that makes ``dev`` (a tensor's device, so indexed) the
+    current device; nothing to enter when it already is."""
+    if dev.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    """The current stream of ``dev`` as a pointer."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _addr(packed: array.array) -> int:
+    """The address of a C array (which must outlive the call)."""
+    return packed.buffer_info()[0]
+
+
+def _fold_rows(part: Sequence[Segment]) -> tuple[array.array, ...]:
+    """The C arrays of a fold table: dst and src addresses (int64),
+    lengths (int64) and scales (f32)."""
+    return (array.array("q", [s.dst.data_ptr() + 4 * s.dst_off
+                              for s in part]),
+            array.array("q", [s.src.data_ptr()
+                              + s.src.element_size() * s.src_off
+                              for s in part]),
+            array.array("q", [s.n for s in part]),
+            array.array("f", [s.scale for s in part]))
+
+
+def fold_plan(segments: Sequence[Segment]) -> tuple[np.ndarray,
+                                                    np.ndarray]:
+    """The plan that a fold launch over ``segments`` (at most
+    MAX_SEGMENTS card rows) runs, from the library's own planner: each
+    row's first span and then the span count (``rows + 1`` int32), and
+    each row's head elements (0-3, before dst's first 16-byte boundary)
+    with PLAN_VECTOR set on a row that takes the vector path."""
+    _check(len(segments) <= MAX_SEGMENTS, "fold_plan",
+           f"at most {MAX_SEGMENTS} rows")
+    dst, src, n, _ = _fold_rows(segments)
+    first = np.zeros(len(segments) + 1, np.int32)
+    plan = np.zeros(len(segments), np.uint8)
+    err = _lib().psdt_fold_plan(_addr(dst), _addr(src), _addr(n),
+                                len(segments),
+                                SRC_KINDS[segments[0].src.dtype],
+                                first.ctypes.data, plan.ctypes.data)
+    if err:
+        raise RuntimeError(f"psdt_fold_plan failed: CUDA error {err}")
+    return first, plan
 
 
 def fold_segments(segments: Sequence[Segment], add: bool) -> None:
@@ -244,9 +305,9 @@ def fold_segments(segments: Sequence[Segment], add: bool) -> None:
         fold_segments_reference(segments, add)
         return
     kinds = {s.src.dtype for s in segments}
-    _check(len(kinds) == 1 and next(iter(kinds)) in SRC_KINDS,
-           "fold_segments", f"sources of one call share f32, bf16 or int8, "
-           f"got {sorted(map(str, kinds))}")
+    if len(kinds) != 1 or next(iter(kinds)) not in SRC_KINDS:
+        _check(False, "fold_segments", f"sources of one call share f32, "
+               f"bf16 or int8, got {sorted(map(str, kinds))}")
     for s in segments:
         _check(s.dst.dtype == torch.float32 and s.dst.is_contiguous()
                and s.src.is_contiguous(), "fold_segments",
@@ -256,20 +317,13 @@ def fold_segments(segments: Sequence[Segment], add: bool) -> None:
                "fold_segments", "a row runs past its tensor")
     kind = SRC_KINDS[segments[0].src.dtype]
     fn = _lib().psdt_fold_segments
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        stream = _stream(dev)
         for lo in range(0, len(segments), MAX_SEGMENTS):
             part = segments[lo:lo + MAX_SEGMENTS]
-            dst = np.array([s.dst.data_ptr() + 4 * s.dst_off for s in part],
-                           np.int64)
-            src = np.array([s.src.data_ptr()
-                            + s.src.element_size() * s.src_off
-                            for s in part], np.int64)
-            n = np.array([s.n for s in part], np.int64)
-            scale = np.array([s.scale for s in part], np.float32)
-            err = fn(dst.ctypes.data, src.ctypes.data, n.ctypes.data,
-                     scale.ctypes.data, len(part), kind, int(bool(add)),
-                     _grid(int(n.sum())), stream)
+            dst, src, n, scale = _fold_rows(part)
+            err = fn(_addr(dst), _addr(src), _addr(n), _addr(scale),
+                     len(part), kind, int(bool(add)), stream)
             _launched(err, "fold_segments")
 
 
@@ -286,15 +340,14 @@ def scale_mean(rows: Sequence[tuple[Tensor, float]]) -> None:
         _check(x.dtype == torch.float32 and x.is_contiguous(), "scale_mean",
                "takes contiguous f32 tensors")
     fn = _lib().psdt_scale_mean
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        stream = _stream(dev)
         for lo in range(0, len(rows), MAX_SEGMENTS):
             part = rows[lo:lo + MAX_SEGMENTS]
-            ptr = np.array([x.data_ptr() for x, _ in part], np.int64)
-            n = np.array([x.numel() for x, _ in part], np.int64)
-            inv = np.array([inv for _, inv in part], np.float32)
-            err = fn(ptr.ctypes.data, n.ctypes.data, inv.ctypes.data,
-                     len(part), _grid(int(n.sum())), stream)
+            ptr = array.array("q", [x.data_ptr() for x, _ in part])
+            n = array.array("q", [x.numel() for x, _ in part])
+            inv = array.array("f", [inv for _, inv in part])
+            err = fn(_addr(ptr), _addr(n), _addr(inv), len(part), stream)
             _launched(err, "scale_mean")
 
 
@@ -341,8 +394,8 @@ def sharded_update(rule: str, rows: Sequence[UpdateRow],
     # a slot the rule lacks is address 0, which is 16-byte aligned
     aligned = tuple((ops % 16 == 0).all(axis=1).tolist())
     fn = _lib().psdt_sharded_update
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        stream = _stream(dev)
         for table in fu.plan(sizes, aligned):
             tensors, n, first, vec, block = fu.kernel_table(table, sizes)
             t_ops = np.ascontiguousarray(ops[tensors])
@@ -371,9 +424,8 @@ def topk_scatter(idx: Tensor, vals: Tensor, total: int) -> Tensor:
     if not total:
         return out
     fn = _lib().psdt_topk_scatter
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
         err = fn(out.data_ptr(), total, idx.data_ptr(), vals.data_ptr(),
-                 idx.numel(), _grid(total), stream)
+                 idx.numel(), _grid(total), _stream(dev))
     _launched(err, "topk_scatter")
     return out

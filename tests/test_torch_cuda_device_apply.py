@@ -1,7 +1,9 @@
 """The device close's four kernels on the card (csrc/device_apply.cu
 through ops/device_apply.py) against their plain PyTorch versions on the
-same inputs, bytes equal; the sharded optimizer and the core's device
-close (per tensor and flat) on the card against the host numpy
+same inputs, bytes equal (the fold and the scale at every row length
+and alignment their sweep treats apart, NaN payloads kept by a set, and
+the library's row plan itself); the sharded optimizer and the core's
+device close (per tensor and flat) on the card against the host numpy
 optimizers, bytes equal.  Marked ``cuda``; skips without a card.  On
 one, run ``python -m pytest --noconftest
 tests/test_torch_cuda_device_apply.py -m cuda``.  Imports neither
@@ -100,6 +102,163 @@ def test_fold_segments_many_small_rows(card, src):
     assert da.launches["fold_segments"] == before + 1
     da.fold_segments_reference([da.Segment(want, d, source, o, n)
                                 for d, o, n in rows], True)
+    assert _same(got, want)
+
+
+SPAN = da.SPAN
+# every row length the sweep treats apart: short rows (head and tail
+# only, or a few vectors), a block step's edge (4096 elements), an odd
+# large row, and a span's edges
+LENGTHS = (list(range(1, 38)) + [4095, 4096, 4097, 65537]
+           + [SPAN - 1, SPAN, SPAN + 1, 2 * SPAN + 3])
+# source residues (in elements) that reach every alignment of the lane's
+# vector load (16 bytes of f32, 8 of bf16, 4 of int8) and more
+SRC_RESIDUES = {"f32": 4, "bf16": 4, "int8": 16}
+
+
+def _layout(lengths, src_mod: int):
+    """Disjoint rows (dst_off, src_off, n): every length at every dst
+    offset mod 4 elements (16 bytes) and every source offset mod
+    ``src_mod`` elements, so dst and src residues also differ."""
+    rows, d, s = [], 0, 0
+    for n in lengths:
+        for a in range(4):
+            for b in range(src_mod):
+                d, s = -(-d // 16) * 16 + a, -(-s // 16) * 16 + b
+                rows.append((d, s, n))
+                d, s = d + n, s + n
+    return rows, d, s
+
+
+def _source(kind: str, rng, size: int) -> torch.Tensor:
+    raw = torch.from_numpy(rng.standard_normal(size).astype(np.float32))
+    if kind == "bf16":
+        return raw.bfloat16()
+    if kind == "int8":
+        return torch.from_numpy(rng.integers(-128, 128, size,
+                                             dtype=np.int8))
+    return raw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("add", [False, True])
+def test_fold_every_length_and_residue(card, src, add):
+    """Each of LENGTHS at every dst and source residue, bytes equal to
+    the plain version: the scalar rows, the heads and tails of vector
+    rows, and rows across span edges."""
+    rng = np.random.default_rng(7)
+    rows, d_len, s_len = _layout(LENGTHS, SRC_RESIDUES[src])
+    dst = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32))
+    source = _source(src, rng, s_len)
+    got, want, s_card = dst.to(card), dst.clone(), source.to(card)
+    da.fold_segments([da.Segment(got, d, s_card, o, n, 0.0123)
+                      for d, o, n in rows], add)
+    da.fold_segments_reference([da.Segment(want, d, source, o, n, 0.0123)
+                                for d, o, n in rows], add)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+def test_fold_plan_heads_vectors_and_spans(card, src):
+    """The library's plan: each row's head brings dst to 16 bytes (or is
+    the whole row), the vector flag is set exactly when the source past
+    the head is aligned for the lane's load, and the rows' spans tile
+    them (ceil(n / SPAN) each, numbered in order)."""
+    rng = np.random.default_rng(8)
+    rows, d_len, s_len = _layout(LENGTHS[::3], SRC_RESIDUES[src])
+    dst = torch.zeros(d_len, device=card)
+    source = _source(src, rng, s_len).to(card)
+    segs = [da.Segment(dst, d, source, o, n) for d, o, n in rows]
+    first, plan = da.fold_plan(segs)
+    esize = source.element_size()
+    assert first[0] == 0
+    for i, (d, o, n) in enumerate(rows):
+        head, vec = int(plan[i]) & 3, bool(plan[i] & da.PLAN_VECTOR)
+        d_addr = dst.data_ptr() + 4 * d
+        assert head == min((-d_addr) % 16 // 4, n)
+        s_addr = source.data_ptr() + esize * (o + head)
+        assert vec == (s_addr % (4 * esize) == 0)
+        assert first[i + 1] - first[i] == -(-n // SPAN)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_fold_set_is_a_bit_copy(card, src, offset):
+    """The set lane keeps NaN payloads (quiet and signalling), -0.0,
+    subnormals and infinities bit for bit (bf16: the exact upcast)."""
+    rng = np.random.default_rng(9)
+    n = 4099
+    if src == "f32":
+        bits = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32)
+        bits[:8] = [0x7fc00001, 0xffa00003, 0x80000000, 0x00000001,
+                    0x7f800000, 0xff800000, 0x7fbfffff, 0x807fffff]
+        source = torch.from_numpy(bits.view(np.float32))
+    else:
+        bits = rng.integers(0, 1 << 16, n, dtype=np.uint32).astype(
+            np.uint16)
+        bits[:6] = [0x7fc1, 0xffa3, 0x8000, 0x0001, 0x7f80, 0x807f]
+        source = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    dst = torch.full((n + offset,), 7.0)
+    got, want = dst.to(card), dst.clone()
+    da.fold_segments([da.Segment(got, offset, source.to(card), 0, n)], False)
+    da.fold_segments_reference([da.Segment(want, offset, source, 0, n)],
+                               False)
+    assert _same(got, want)
+    expect = (bits.astype(np.uint32) << 16 if src == "bf16"
+              else bits).view(np.float32)
+    assert got[offset:].cpu().numpy().tobytes() == expect.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", ["f32", "bf16", "int8"])
+def test_fold_1024_rows_is_one_launch(card, src):
+    """1,024 rows of random lengths and residues in one launch (and the
+    1,025th row in a second), bytes equal to the plain version."""
+    rng = np.random.default_rng(10)
+    sizes = rng.integers(1, 3000, 1025)
+    rows, d, s = [], 0, 0
+    for n in sizes.tolist():
+        d += int(rng.integers(0, 5))
+        s += int(rng.integers(0, 17))
+        rows.append((d, s, n))
+        d, s = d + n, s + n
+    dst = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    source = _source(src, rng, s)
+    got, want, s_card = dst.to(card), dst.clone(), source.to(card)
+    for part, launches in ((rows[:1024], 1), (rows, 2)):
+        before = da.launches["fold_segments"]
+        da.fold_segments([da.Segment(got, d, s_card, o, n, 0.5)
+                          for d, o, n in part], True)
+        assert da.launches["fold_segments"] == before + launches
+        da.fold_segments_reference([da.Segment(want, d, source, o, n, 0.5)
+                                    for d, o, n in part], True)
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_scale_mean_lengths_and_residues(card):
+    """scale_mean over rows of every length of LENGTHS at every residue,
+    one launch (and 1,024 rows in one launch), bytes equal."""
+    rng = np.random.default_rng(11)
+    rows, d_len, _ = _layout(LENGTHS, 1)
+    x = torch.from_numpy(rng.standard_normal(d_len).astype(np.float32))
+    got, want = x.to(card), x.clone()
+    inv = device_apply.inverse_count(3)
+    before = da.launches["scale_mean"]
+    da.scale_mean([(got[d:d + n], inv) for d, _, n in rows])
+    assert da.launches["scale_mean"] == before + 1
+    da.scale_mean_reference([(want[d:d + n], inv) for d, _, n in rows])
+    assert _same(got, want)
+    small = [(got[i * 7:i * 7 + 5], inv) for i in range(1024)]
+    before = da.launches["scale_mean"]
+    da.scale_mean(small)
+    assert da.launches["scale_mean"] == before + 1
+    da.scale_mean_reference([(want[i * 7:i * 7 + 5], inv)
+                             for i in range(1024)])
     assert _same(got, want)
 
 
