@@ -999,9 +999,17 @@ def cold_ms(torch, fn, operand, min_calls: int = 8,
     so each call reads its copy from device memory, as a decode round
     that streams every weight does), replayed between CUDA events; the
     median of ``replays`` replays, per call.  The graph leaves no host
-    time between the launches."""
-    nbytes = operand.numel() * operand.element_size()
-    copies = [operand] + [operand.clone() for _ in range(
+    time between the launches.  ``operand`` is a tensor or a tuple of
+    tensors, copied together."""
+    parts = operand if isinstance(operand, tuple) else (operand,)
+    nbytes = sum(t.numel() * t.element_size() for t in parts)
+
+    def clone():
+        if isinstance(operand, tuple):
+            return tuple(t.clone() for t in operand)
+        return operand.clone()
+
+    copies = [operand] + [clone() for _ in range(
         max(1, -(-COLD_BYTES // nbytes)) - 1)]
     calls = len(copies) * -(-min_calls // len(copies))
     for c in copies[:2]:   # warm-up (a library call may set itself up)
@@ -1067,6 +1075,133 @@ def time_int8_wdot(torch, i8, x, q, scale) -> dict:
     return out
 
 
+# a profiled int8 request's kernel groups (group -> substring of names)
+INT8_PROFILE_GROUPS = {"flash_ms": "flash_fwd", "wdot_ms": "wdot",
+                       "wdot_decode_ms": "wdot_skinny",
+                       "attention_ms": "decode_attn",
+                       "kv_quantize_ms": "kv_quantize"}
+# K6's extension shape: a [1, 256] suffix block against a 1024-token
+# prefix (models/serving.py _extend at its largest suffix bucket)
+K6_EXTEND = dict(prefix=1024, suffix=256)
+K6_LONG = dict(rows=8, max_len=32768)   # a decode round of a 32K-token server
+
+
+def int8_attention_inputs(torch, np, gen) -> dict:
+    """K6's and K7's operands at the llama_350m serving shapes: a decode
+    round (8 rows, max_len 2048, limits 129..2047, bf16 queries; the
+    cache layer as a tuple), an extension (one row, K6_EXTEND: 256 bf16
+    queries after a 1024-token prefix, max_len 1280), a decode round of
+    a long cache (K6_LONG: 8 rows, max_len 32768, limits 129..32767, which
+    K6 streams through one slot in rounds), a decode round's K7 write [8,
+    1, 4, 64] (row 7 past the cache, dropped) and a 2048-token prefill
+    stack [24, 2048, 4, 64], bf16."""
+    heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+
+    def cache(b, max_len):
+        k8, v8 = (torch.randint(-127, 128, (b, max_len, kv, d),
+                                generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((b, max_len, kv), generator=gen, device="cuda")
+                  * 0.02 + 1e-3 for _ in range(2))
+        return k8, v8, ks, vs
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    b, max_len = 8, 2048
+    pre, suf = K6_EXTEND["prefix"], K6_EXTEND["suffix"]
+    return {
+        "decode_q": randn(b, 1, heads, d), "decode_cache": cache(b, max_len),
+        "decode_lens": torch.tensor(np.linspace(129, 2047, b).astype(
+            np.int64), device="cuda"),
+        "extend_q": randn(1, suf, heads, d),
+        "extend_cache": cache(1, pre + suf),
+        "extend_lens": torch.tensor([pre], dtype=torch.int64, device="cuda"),
+        "long_q": randn(K6_LONG["rows"], 1, heads, d),
+        "long_cache": cache(K6_LONG["rows"], K6_LONG["max_len"]),
+        "long_lens": torch.tensor(np.linspace(
+            129, K6_LONG["max_len"] - 1, K6_LONG["rows"]).astype(np.int64),
+            device="cuda"),
+        "kvq_decode": (randn(b, 1, kv, d), randn(b, 1, kv, d)),
+        "kvq_decode_lens": torch.tensor([0, 5, 129, 700, 1300, 2000, 2047,
+                                         2048], dtype=torch.int64,
+                                        device="cuda"),
+        "kvq_prefill": (randn(LLAMA["layers"], 2048, kv, d),
+                        randn(LLAMA["layers"], 2048, kv, d))}
+
+
+def time_int8_attention(torch, i8, inp,
+                        shapes=("decode", "extend", "long")) -> dict:
+    """K6 at the decode, the extension and the long shape: the device
+    time of a call
+    with a cold L2 (``ms``: cold_ms, a CUDA graph over copies of the cache
+    layer), the eager event time of back-to-back calls (``eager_ms``, the
+    host's time between them included) and the host time of a call
+    (``host_us``), beside the bound."""
+    heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+    out = {}
+    for shape in shapes:
+        q, layer, lens = (inp[f"{shape}_q"], inp[f"{shape}_cache"],
+                          inp[f"{shape}_lens"])
+        b, t = q.shape[:2]
+        max_len = layer[0].shape[1]
+        limits = (lens[:, None] + torch.arange(t, device="cuda")).clamp(
+            max=max_len - 1)
+        visible = int((limits + 1).sum())             # query-positions
+        rows = int(limits[:, -1].sum()) + b           # positions read
+        b_ms, b_by = bound(4.0 * heads * d * visible,
+                           rows * kv * (2 * d + 8) + 2 * 2 * b * t * heads * d,
+                           "bfloat16")
+
+        def call(c=layer, q=q, lens=lens):
+            return i8.decode_attention_int8(q, *c, lengths=lens)
+
+        out[shape] = dict(
+            ms=cold_ms(torch, lambda c: call(c), layer),
+            eager_ms=cuda_ms(torch, call), host_us=host_us(torch, call),
+            bound_ms=b_ms, bound_by=b_by, visible_positions=visible)
+    return out
+
+
+def time_kv_quantize(torch, i8, inp) -> dict:
+    """K7 at the prefill stack (``prefill``: kv_quantize_rows, the device
+    time in a CUDA graph over copies of K and V, cold_ms) and at a decode
+    round's write (``decode``: the same write captured 20 times in a
+    graph, graph_ms), each beside its eager event time, the host time of
+    a call and the bound (the bytes of the rows kept)."""
+    kx, vx = inp["kvq_prefill"]
+    elems = 2 * kx.numel()
+    d = kx.shape[-1]
+    b_ms, b_by = bound(3.0 * elems, elems * (2 + 1) + elems // d * 4,
+                       "float32")
+
+    def rows(c=(kx, vx)):
+        return i8.kv_quantize_rows(*c)
+
+    out = {"prefill": dict(ms=cold_ms(torch, rows, (kx, vx)),
+                           eager_ms=cuda_ms(torch, rows),
+                           host_us=host_us(torch, rows), bound_ms=b_ms,
+                           bound_by=b_by)}
+    kx, vx = inp["kvq_decode"]
+    lens = inp["kvq_decode_lens"]
+    b, _, kv, d = kx.shape
+    cache = [torch.zeros((b, 2048, kv, d), dtype=torch.int8, device="cuda")
+             for _ in range(2)] + [torch.ones((b, 2048, kv), device="cuda")
+                                   for _ in range(2)]
+
+    def write():
+        i8.kv_quantize(kx, vx, *cache, lengths=lens)
+
+    kept = 2 * int((lens < 2048).sum()) * kv
+    b_ms, b_by = bound(3.0 * kept * d, kept * (d * (2 + 1) + 4), "float32")
+    out["decode"] = dict(ms=graph_ms(torch, [write] * 20),
+                         eager_ms=cuda_ms(torch, write),
+                         host_us=host_us(torch, write), bound_ms=b_ms,
+                         bound_by=b_by)
+    return out
+
+
 def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
     """The three kernels of csrc/int8_serve.cu against their plain
     versions on the card at the llama_350m serving shapes: int8_wdot (K5)
@@ -1075,11 +1210,13 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
     time_int8_wdot (a cold L2's device time, eager time, the library's
     int8-weight product and a dense bf16 matmul beside it);
     decode_attention_int8 (K6) at 8 rows, max_len 2048, 4 KV heads of 4
-    query heads, D 64, ragged limits 129..2047 and a contiguous block;
+    query heads, D 64, ragged limits 129..2047 and a contiguous block, at
+    the extension shape (K6_EXTEND) and at a long cache (K6_LONG), timed
+    by time_int8_attention;
     kv_quantize (K7) at a decode round's [8, 1, 4, 64] (one write past
     max_len, dropped) and a 2048-token prefill stack [24, 2048, 4, 64],
-    byte for byte.  Each timed beside its plain version and its bound.
-    Returns (max_abs_err, times) by kernel name."""
+    byte for byte, timed by time_kv_quantize.  Each beside its plain
+    version and its bound.  Returns (max_abs_err, times) by kernel name."""
     from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
 
     checks, report = {}, {}
@@ -1111,18 +1248,12 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
                     torch, i8, x, q, scale)
             del q, scale
         # K6: the serving shape, ragged and contiguous
-        b, max_len, kv, heads, d = 8, 2048, LLAMA["kv"], LLAMA["heads"], \
-            LLAMA["d"]
-        k8, v8 = (torch.randint(-127, 128, (b, max_len, kv, d),
-                                generator=gen, device="cuda",
-                                dtype=torch.int8) for _ in range(2))
-        ks, vs = (torch.rand((b, max_len, kv), generator=gen, device="cuda")
-                  * 0.02 + 1e-3 for _ in range(2))
-        lens = torch.tensor(np.linspace(129, 2047, b).astype(np.int64),
-                            device="cuda")
+        b, max_len, kv, d = 8, 2048, LLAMA["kv"], LLAMA["d"]
+        inp = int8_attention_inputs(torch, np, gen)
+        k8, v8, ks, vs = inp["decode_cache"]
+        lens = inp["decode_lens"]
         for dtype in (torch.float32, torch.bfloat16):
-            q = torch.randn((b, 1, heads, d), generator=gen, device="cuda",
-                            dtype=dtype)
+            q = inp["decode_q"].to(dtype)
             for label, kw in (("ragged", dict(lengths=lens)),
                               ("contiguous", dict(base=1500))):
                 got = i8.decode_attention_int8(q, k8, v8, ks, vs, **kw)
@@ -1130,24 +1261,32 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
                     q, k8, v8, ks, vs, kw.get("lengths"), kw.get("base", 0))
                 hold("decode_attention_int8", f"{label}/{dtype}", got, want,
                      dtype == torch.float32)
-        ms = cuda_ms(torch, lambda: i8.decode_attention_int8(
-            q, k8, v8, ks, vs, lengths=lens))
+        q = inp["extend_q"]
+        hold("decode_attention_int8", "extend/torch.bfloat16",
+             i8.decode_attention_int8(q, *inp["extend_cache"],
+                                      lengths=inp["extend_lens"]),
+             i8.decode_attention_int8_reference(
+                 q, *inp["extend_cache"], inp["extend_lens"], 0), False)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = inp["long_q"].to(dtype)
+            hold("decode_attention_int8", f"long/{dtype}",
+                 i8.decode_attention_int8(q, *inp["long_cache"],
+                                          lengths=inp["long_lens"]),
+                 i8.decode_attention_int8_reference(
+                     q, *inp["long_cache"], inp["long_lens"], 0),
+                 dtype == torch.float32)
+        times = time_int8_attention(torch, i8, inp)
+        q = inp["decode_q"]
         plain = cuda_ms(torch, lambda: i8.decode_attention_int8_reference(
             q, k8, v8, ks, vs, lens, 0), iters=5)
-        visible = int((lens + 1).sum())
-        b_ms, b_by = bound(4.0 * heads * d * visible,
-                           visible * kv * (2 * d + 8) + 2 * 2 * b * heads * d,
-                           "bfloat16")
         report["decode_attention_int8"] = dict(
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-            bound_by=b_by, visible_positions=visible)
+            **times["decode"], plain_ms=plain, library_ms=None,
+            extend=times["extend"], long=times["long"])
         del k8, v8, ks, vs
         # K7: a decode round's write (row 7 past the cache, dropped) and a
         # prefill stack, bytes equal to the plain version
-        kx, vx = (torch.randn((b, 1, kv, d), generator=gen, device="cuda",
-                              dtype=torch.bfloat16) for _ in range(2))
-        dec_lens = torch.tensor([0, 5, 129, 700, 1300, 2000, 2047, 2048],
-                                dtype=torch.int64, device="cuda")
+        kx, vx = inp["kvq_decode"]
+        dec_lens = inp["kvq_decode_lens"]
         outs = []
         for _ in range(2):
             outs.append([torch.zeros((b, max_len, kv, d), dtype=torch.int8,
@@ -1159,10 +1298,7 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
         checks["kv_quantize/decode"] = all(
             same_bytes(torch, g, w) for g, w in zip(*outs))
         del outs
-        layers = LLAMA["layers"]
-        kx, vx = (torch.randn((layers, 2048, kv, d), generator=gen,
-                              device="cuda", dtype=torch.bfloat16)
-                  for _ in range(2))
+        kx, vx = inp["kvq_prefill"]
         got = i8.kv_quantize_rows(kx, vx)
         ref_k, ref_v = i8.kv_rows_reference(kx), i8.kv_rows_reference(vx)
         want = (ref_k[0], ref_v[0], ref_k[1], ref_v[1])
@@ -1171,15 +1307,13 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
         max_err["kv_quantize"] = max(
             float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want))
-        ms = cuda_ms(torch, lambda: i8.kv_quantize_rows(kx, vx))
+        del got, want, ref_k, ref_v
+        times = time_kv_quantize(torch, i8, inp)
         plain = cuda_ms(torch, lambda: (i8.kv_rows_reference(kx),
                                         i8.kv_rows_reference(vx)), iters=5)
-        elems = 2 * kx.numel()
-        b_ms, b_by = bound(3.0 * elems, elems * (2 + 1) + elems // d * 4,
-                           "float32")
-        report["kv_quantize"] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                     bound_ms=b_ms, bound_by=b_by)
-        del kx, vx, got, want, ref_k, ref_v
+        report["kv_quantize"] = dict(**times["prefill"], plain_ms=plain,
+                                     library_ms=None, decode=times["decode"])
+        del kx, vx, inp
     emit({"phase": "int8_kernels", "checks": checks, "max_abs_err": max_err,
           **report})
     if not all(checks.values()):
@@ -1284,11 +1418,7 @@ def serve_int8(torch, np, fa, rng) -> dict:
         srv.submit(prompts[-1], max_new_tokens=8)
         srv.run_to_completion()
 
-    prof = profile_window(
-        torch, one_request, {"flash_ms": "flash_fwd", "wdot_ms": "wdot",
-                             "wdot_decode_ms": "wdot_skinny",
-                             "attention_ms": "decode_attn",
-                             "kv_quantize_ms": "kv_quantize"})
+    prof = profile_window(torch, one_request, INT8_PROFILE_GROUPS)
     # K5's prefill products: every K5 launch that is not a decode round's
     wdot = prof["group_ms"]
     prof["group_ms"]["wdot_prefill_ms"] = (

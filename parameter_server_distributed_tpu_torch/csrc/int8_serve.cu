@@ -41,21 +41,30 @@
 //    Only int8 bytes of a weight leave device memory in every shape: no
 //    widened copy is made.
 //  - K6 is bound by the cache bytes up to each row's limit (K and V int8,
-//    their f32 scales).  Probabilities are rounded to the model dtype
-//    after normalisation, as in the reference, so an online softmax
-//    cannot give its rounding: a block (one row, one query head, one
-//    query) keeps the scores over the visible positions in shared memory
-//    (8 KB at max_len 2048), takes max, sum and the normalised, rounded
-//    weights, then the V pass (4 neighbouring d a thread, one 4-byte load
-//    a position), split over position groups and added in a fixed order.
-//    The G query heads of a KV head read its rows alike, the repeats
-//    from L2; B x H blocks (128 in a decode round) spread over the card.  Positions past the limit are
-//    never read.
-//  - K7 is bound by bytes.  One warp a (row, position, head, K or V): the
-//    absmax over D by shuffles, an IEEE divide (not a reciprocal), rint
-//    half to even, the clip; writes at positions past max_len are
-//    dropped, not clamped.  It must be byte-equal to its plain version,
-//    so the library builds with --fmad=false, -prec-div=true,
+//    their f32 scales), and at a decode round's size (4.8 MB) by latency:
+//    the launch, one DRAM round trip and the chain of reductions.
+//    Probabilities are rounded to the model dtype after normalisation, as
+//    in the reference, so an online softmax cannot give its rounding:
+//    the scores stay in shared memory until the max and the sum are known.
+//    A row's visible positions fall into chunks of attn::P, spread over a
+//    thread-block cluster (decode_attn_plan.h), so a decode round's 8 rows of
+//    2048 positions fill the card's SMs; a block reads each K and V row of
+//    its chunk once (16-byte copies into shared memory, all issued on
+//    entry) for every query head of the KV head and every query of its
+//    tile, and the cluster finishes the softmax and the V sums through
+//    distributed shared memory, a round (a chunk a block) at a time.
+//    Where a tile's rounds do not fit in shared memory, it scores each
+//    chunk again in the sum and V passes instead of holding the scores,
+//    so shared memory does not grow with max_len.  Every sum across
+//    chunks runs in chunk order, so a row's result does not depend on the
+//    cluster, the rounds held, the batch or max_len.  Positions past the
+//    limit are never read.
+//  - K7 is bound by bytes: a row of D elements is D / 8 lanes, 8 elements
+//    a lane, one 16-byte load (bf16) and one 8-byte store of the codes;
+//    the absmax by shuffles among the row's lanes, an IEEE divide (not a
+//    reciprocal), rint half to even, the clip; writes at positions past
+//    max_len are dropped, not clamped.  It must be byte-equal to its plain
+//    version, so the library builds with --fmad=false, -prec-div=true,
 //    -prec-sqrt=true and -ftz=false (ops/build.py EXTRA_FLAGS); K5 and K6
 //    call fmaf explicitly where they want a fused multiply-add.
 
@@ -63,9 +72,11 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 
+#include "decode_attn_plan.h"
 #include "flash_mma.cuh"
 
 namespace {
@@ -93,8 +104,7 @@ constexpr int SKINNY_ROWS = 2;   // most rows a skinny warp takes
 constexpr int SKINNY_THREADS = 1024;   // most threads of a skinny block
 constexpr int BM = 64, BN = 64, BK = 32;  // tiled K5
 constexpr int TILED_THREADS = 256;
-constexpr int ATTN_THREADS = 256;
-constexpr int MAXD = 256;        // head dim (K6, K7)
+constexpr int MAXD = 256;        // most head dim (K6, K7)
 
 static_assert(KSEG % BK == 0, "a run is whole tiles of the tiled shape");
 
@@ -890,165 +900,700 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// grid (T, H, B), ATTN_THREADS threads: one block a (row, query head,
-// query); the G query heads of a KV head read its K/V rows alike (the
-// repeat reads come from L2).  q, out: [B, T, H, D] (dtype); k8, v8:
-// [B, max_len, KV, D] int8; ks, vs: [B, max_len, KV] f32.  Query j of
-// row b sees positions 0..limit, limit = (lengths ? lengths[b] : base) +
-// j, clipped to the cache.  Shared memory: the scores [max_len], the
-// query [D], the V pass's partials [groups][D] and the reduction slots.
-template <bool BF16>
-__global__ void __launch_bounds__(ATTN_THREADS)
-decode_attn_kernel(const void* __restrict__ q, const int8_t* __restrict__ k8,
-                   const int8_t* __restrict__ v8,
-                   const float* __restrict__ ks, const float* __restrict__ vs,
-                   const long long* __restrict__ lengths, long long base,
-                   void* __restrict__ out, int T, int H, int KV, int D,
-                   int max_len, float sqrt_d) {
-  extern __shared__ float smem[];
-  const int j = blockIdx.x, hq = blockIdx.y, b = blockIdx.z;
-  const int h = hq / (H / KV);                   // its KV head
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  constexpr int WARPS = ATTN_THREADS / 32;
-  const int quads = D / 4;
-  const int groups = ATTN_THREADS / quads;       // V-pass position groups
-  float* scores = smem;                          // [max_len]
-  float* qs = scores + max_len;                  // [D]
-  float* vpart = qs + D;                         // [groups][D]
-  float* red = vpart + groups * D;               // [WARPS]
-  const long long limit = (lengths ? lengths[b] : base) + j;
-  const int nvis = static_cast<int>(
-      limit + 1 < max_len ? limit + 1 : static_cast<long long>(max_len));
-  const long long qrow = (static_cast<long long>(b) * T + j) * H + hq;
-  for (int e = tid; e < D; e += ATTN_THREADS)
-    qs[e] = load_f<BF16>(q, qrow * D + e);
-  __syncthreads();
-  // scores: f32 product, x k_scale, / sqrt(D)
-  const long long row0 = static_cast<long long>(b) * max_len;
-  float mx = -INFINITY;
-  for (int p = tid; p < nvis; p += ATTN_THREADS) {
-    const long long at = (row0 + p) * KV + h;
-    const char4* kr = reinterpret_cast<const char4*>(k8 + at * D);
-    float acc = 0.f;
-    // unrolled so that a row's loads (16 at D = 64) issue together
-#pragma unroll 16
-    for (int d4 = 0; d4 < quads; ++d4) {
-      const char4 c = __ldg(kr + d4);
-      acc = fmaf(qs[d4 * 4], static_cast<float>(c.x), acc);
-      acc = fmaf(qs[d4 * 4 + 1], static_cast<float>(c.y), acc);
-      acc = fmaf(qs[d4 * 4 + 2], static_cast<float>(c.z), acc);
-      acc = fmaf(qs[d4 * 4 + 3], static_cast<float>(c.w), acc);
-    }
-    const float sc = __fdiv_rn(__fmul_rn(acc, ks[at]), sqrt_d);
-    scores[p] = sc;
-    mx = fmaxf(mx, sc);
-  }
-  // softmax over the visible positions
-  mx = warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  mx = red[0];
-  for (int i = 1; i < WARPS; ++i) mx = fmaxf(mx, red[i]);
-  __syncthreads();
-  float sm = 0.f;
-  for (int p = tid; p < nvis; p += ATTN_THREADS) {
-    const float e = expf(__fsub_rn(scores[p], mx));
-    scores[p] = e;
-    sm = __fadd_rn(sm, e);
-  }
-  sm = warp_sum(sm);
-  if (lane == 0) red[warp] = sm;
-  __syncthreads();
-  sm = 0.f;
-  for (int i = 0; i < WARPS; ++i) sm = __fadd_rn(sm, red[i]);
-  // probs rounded to the dtype, times v_scale rounded to the dtype (a
-  // product in the dtype)
-  for (int p = tid; p < nvis; p += ATTN_THREADS) {
-    const float pr = __fdiv_rn(scores[p], sm);
-    const float vscale = vs[(row0 + p) * KV + h];
-    scores[p] = BF16 ? round_bf16(__fmul_rn(round_bf16(pr),
-                                            round_bf16(vscale)))
-                     : __fmul_rn(pr, vscale);
-  }
-  __syncthreads();
-  // V pass: thread (group, quad) adds positions group, group + groups, ...
-  // for 4 neighbouring d (one 4-byte load a position); the groups'
-  // partials are added in group order
-  if (tid < groups * quads) {
-    const int grp = tid / quads, d0 = (tid % quads) * 4;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-    for (int p = grp; p < nvis; p += groups) {
-      const char4 c = __ldg(reinterpret_cast<const char4*>(
-          v8 + ((row0 + p) * KV + h) * D + d0));
-      const float w = scores[p];
-      acc[0] = fmaf(w, static_cast<float>(c.x), acc[0]);
-      acc[1] = fmaf(w, static_cast<float>(c.y), acc[1]);
-      acc[2] = fmaf(w, static_cast<float>(c.z), acc[2]);
-      acc[3] = fmaf(w, static_cast<float>(c.w), acc[3]);
+// four int8 codes (one word, the lowest byte first) as two bf16 pairs:
+// lo the first two, hi the last two (exact)
+__device__ __forceinline__ void codes4_bf16(unsigned w, uint32_t& lo,
+                                            uint32_t& hi) {
+  float f[4];
+  widen4(w, f);
+  lo = flash_mma::pack(f[0], f[1]);
+  hi = flash_mma::pack(f[2], f[3]);
+}
+
+// d += a b, one m16n8k16 tensor-core product (bf16 in, f32 sums); the
+// fragments in the mma.sync layouts (flash_mma.cuh)
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct AttnArgs {
+  const void* q;
+  const int8_t* k8;
+  const int8_t* v8;
+  const float* ks;
+  const float* vs;
+  const long long* lengths;
+  long long base;
+  void* out;
+  int T, H, KV, D, max_len, tile, rounds, hold;   // the plan's
+  float sqrt_d, inv_sqrt_d;   // inv_sqrt_d: 1 / sqrt_d where that is exact
+                              // (a power of two), else 0
+};
+
+// score / sqrt(D): the IEEE divide, or the product with the exact
+// reciprocal where sqrt(D) is a power of two (the same bits; the divide
+// costs a decode round's scores ~4 %)
+__device__ __forceinline__ float over_sqrt_d(const AttnArgs& a, float x) {
+  return a.inv_sqrt_d != 0.f ? __fmul_rn(x, a.inv_sqrt_d)
+                             : __fdiv_rn(x, a.sqrt_d);
+}
+
+// acc[rr] = the f32 product of the int8 key row `krow` with query row rr
+// of q ([QS][D], f32), an fmaf chain over d in order; W-byte reads of the
+// codes (16 when D % 16 == 0 and the rows are so aligned, else 4).
+template <int W>
+__device__ __forceinline__ void dot_rows(const unsigned char* krow,
+                                         const float* q, int D,
+                                         float (&acc)[attn::QS]) {
+  for (int d0 = 0; d0 < D; d0 += W) {
+    float kf[W / 4][4];
+    if constexpr (W == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(krow + d0);
+      widen4(u.x, kf[0]);
+      widen4(u.y, kf[1]);
+      widen4(u.z, kf[2]);
+      widen4(u.w, kf[3]);
+    } else {
+      widen4(*reinterpret_cast<const unsigned*>(krow + d0), kf[0]);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) vpart[grp * D + d0 + i] = acc[i];
+    for (int rr = 0; rr < attn::QS; ++rr) {
+#pragma unroll
+      for (int e = 0; e < W / 4; ++e) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(q + rr * D + d0 + 4 * e);
+        acc[rr] = fmaf(qv.x, kf[e][0], acc[rr]);
+        acc[rr] = fmaf(qv.y, kf[e][1], acc[rr]);
+        acc[rr] = fmaf(qv.z, kf[e][2], acc[rr]);
+        acc[rr] = fmaf(qv.w, kf[e][3], acc[rr]);
+      }
+    }
+  }
+}
+
+// One thread-block cluster a (query tile, KV head, row), grid
+// (cluster * tiles, KV, B), attn::THREADS threads a block
+// (decode_attn_plan.h: the plan, the layout and every index).  q, out:
+// [B, T, H, D] (dtype); k8, v8: [B, max_len, KV, D] int8; ks, vs: [B,
+// max_len, KV] f32.  Query j of row b sees positions 0..limit, limit =
+// (lengths ? lengths[b] : base) + j, clipped to the cache.  The block of
+// rank k holds chunks k, k + cluster, ... of the tile's positions, one a
+// round.  On entry it puts its first chunk's K rows and scales in flight
+// (cp.async, 16 bytes a copy where the rows allow; the V rows follow once
+// the K rows land, so the scores wait on K alone), then
+//  1. scores: each position against every query row of the tile (the G
+//     query heads of the KV head and the tile's queries: each K byte is
+//     read once for all of them), x k_scale, / sqrt(D).  bf16 queries
+//     with 16-byte rows (MMA) run m16n8k16 tensor-core products, K's
+//     codes widened to bf16 (exact) in the A fragments; f32 queries an
+//     fmaf chain a position a thread, QS query rows a step.  A warp a
+//     query row takes the block's max, which goes into every block's
+//     inbox; the cluster's max is exact in any order;
+//  2. a round at a time, exp(s - max) and each chunk's sum in a fixed
+//     order within the chunk, stored into every block's inbox; each row's
+//     sum so far takes the round's chunks in chunk order;
+//  3. a round at a time, the probabilities normalised, rounded to the
+//     dtype and multiplied by the dtype-rounded V scale (bf16 weights for
+//     the tensor cores), then the V pass: tensor-core products of the
+//     weights and V's codes (MMA), or thread (group, quad) adding
+//     positions group, group + groups, ... of the chunk for 4
+//     neighbouring d and the groups' partials in group order; each element
+//     of the chunk's partial stored into the inbox of the block that ends
+//     it, which adds the round's chunks in chunk order onto its sum so far
+//     and, after the last round, stores it.
+// A tile of more rounds than the plan holds scores again in passes 2 and
+// 3 (the same bits), so shared memory does not grow with max_len.  Every
+// exchange is a store into another block's shared memory (no remote load
+// waits), then a cluster barrier; the first store waits on a barrier
+// arrived at on entry (a block's shared memory may be written only once
+// the block has started).  No global scratch, no atomics; positions past
+// a row's last query's limit are never read.  At a decode round the
+// kernel is latency-bound: a launch, a DRAM round trip for the K rows,
+// then short dependent chains split by the three exchanges.  HELD: every
+// tile of the call holds its rounds (the plan's hold is its rounds).
+// Without the streamed passes' code the kernel fits 80 registers, three
+// blocks an SM (at 86-96 registers, two blocks an SM, a decode round took
+// 0.020-0.021 ms against 0.015).  The streamed passes need 121-145
+// registers (they spill at 80).
+template <bool BF16, bool VEC, bool HELD>
+__global__ void __launch_bounds__(attn::THREADS, HELD ? 3 : 1)
+decode_attn_kernel(const AttnArgs a) {
+  using attn::P;
+  using attn::QS;
+  using attn::THREADS;
+  using attn::WARPS;
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();   // waited on before the first remote store
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KV, D = a.D;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int j0 = static_cast<int>(blockIdx.x) / C * a.tile;
+  const int nq = G * min(a.tile, a.T - j0);   // the tile's query rows
+  const int rows = attn::layout_rows(G, a.tile);   // the layout's
+  const attn::Layout L = attn::layout(rows, D, a.hold, C, a.rounds);
+  unsigned char* kbuf = attn_smem;
+  float* vred = reinterpret_cast<float*>(attn_smem);
+  unsigned char* vbuf = attn_smem + L.vbuf;
+  float* qs = reinterpret_cast<float*>(attn_smem + L.qs);
+  float* sc = reinterpret_cast<float*>(attn_smem + L.sc);
+  float* ksm = reinterpret_cast<float*>(attn_smem + L.ks);
+  float* vsm = reinterpret_cast<float*>(attn_smem + L.vs);
+  int* nvr = reinterpret_cast<int*>(attn_smem + L.nv);
+  float* mxr = reinterpret_cast<float*>(attn_smem + L.mx);
+  float* tot = reinterpret_cast<float*>(attn_smem + L.tot);
+  // bf16 queries with 16-byte rows take the tensor cores: the queries as
+  // bf16 [rows][D + 16] (over qs; 8-byte reads of 8 rows fall on distinct
+  // banks), the weights as bf16 [hold][wb_rows][WBS]
+  constexpr bool MMA = BF16 && VEC;
+  const int qbs = D + 16, wrows = attn::wb_rows(rows);
+  unsigned short* qb = reinterpret_cast<unsigned short*>(qs);
+  bf16* wb = reinterpret_cast<bf16*>(attn_smem + L.wb);
+  const int g8 = lane / 4, t4 = lane % 4;   // the mma.sync fragment's
+  float* mxin = reinterpret_cast<float*>(attn_smem + L.mxin);
+  float* psin = reinterpret_cast<float*>(attn_smem + L.psin);
+  float* oin = reinterpret_cast<float*>(attn_smem + L.oin);
+  float* oacc = reinterpret_cast<float*>(attn_smem + L.oacc);
+  // the tile's queries, four loads in flight a thread, the first four
+  // before anything waits on the lengths: f32 [rows][D], or bf16 [rows]
+  // [qbs] for the tensor cores (bf16 -> f32 -> bf16 keeps the bits)
+  float qv[4];
+  auto load_q = [&](int e0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * THREADS, r = e / D;
+      qv[k] = e < nq * D ? load_f<BF16>(a.q, ((static_cast<long long>(b) *
+                                                   a.T + j0 + r / G) * a.H +
+                                               h * G + r % G) * D + e % D)
+                         : 0.f;
+    }
+  };
+  auto stage_q = [&](int e0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * THREADS;
+      if (e >= nq * D) break;
+      if constexpr (MMA)
+        qb[e / D * qbs + e % D] =
+            static_cast<unsigned short>(__float_as_uint(qv[k]) >> 16);
+      else
+        qs[e] = qv[k];
+    }
+  };
+  load_q(tid);
+  const long long first = (a.lengths ? a.lengths[b] : a.base) + j0;
+  const int nv_max = attn::visible(first + (nq - 1) / G, a.max_len);
+  const int nch = attn::chunks(nv_max);
+  const int mine = attn::slots_of(rank, nch, C);
+  // the tile's rounds (every block of the cluster takes part in each);
+  // held: every round's scores stay in their slot
+  const int rounds = max(1, attn::slots_of(0, nch, C));
+  const bool held = HELD || rounds <= a.hold;
+  const long long row0 = static_cast<long long>(b) * a.max_len;
+  const int kst = attn::kstride(D), vst = attn::vstride(D);
+  const int per = attn::share(nq * D, C);   // outputs a block ends
+
+  // head h's codes at chunk c's positions [c * P, c * P + n) into buf
+  // (thread t copies piece t % pieces of rows t / pieces + k * step)
+  constexpr int W = VEC ? 16 : 4;
+  const int pieces = D / W, step = THREADS / pieces;
+  const int row_of = tid / pieces, piece = (tid % pieces) * W;
+  auto copy_rows = [&](const int8_t* src, unsigned char* buf, int st, int c) {
+    if (row_of >= step) return;
+    const int n = min(P, nv_max - c * P);
+    const int8_t* from =
+        src + ((row0 + c * P + row_of) * a.KV + h) * D + piece;
+    for (int p = row_of; p < n;
+         p += step, from += static_cast<long long>(step) * a.KV * D) {
+      if constexpr (VEC)
+        cp_async_16(buf + p * st + piece, from, true);
+      else
+        cp_async_4(buf + p * st + piece, from, true);
+    }
+  };
+  // and their scales into sbuf
+  auto copy_scales = [&](const float* scale, float* sbuf, int c) {
+    if (tid < min(P, nv_max - c * P))
+      cp_async_4(sbuf + tid, scale + (row0 + c * P + tid) * a.KV + h, true);
+  };
+  // chunk c's K rows and scales, and its V scales into vdst
+  auto load_k = [&](int c, float* vdst) {
+    copy_rows(a.k8, kbuf, kst, c);
+    copy_scales(a.ks, ksm, c);
+    copy_scales(a.vs, vdst, c);
+    cp_async_commit();
+  };
+
+  // the first chunk's K rows and both scales in flight before anything
+  // waits (its V rows once the K rows have landed: the scores wait on K
+  // alone, the V pass comes two exchanges later)
+  if (mine > 0) load_k(rank, vsm);
+  // each query row's visible positions; the rest of the tile's queries
+  for (int r = tid; r < nq; r += THREADS)
+    nvr[r] = attn::visible(first + r / G, a.max_len);
+  stage_q(tid);
+  for (int e0 = tid + 4 * THREADS; e0 < nq * D; e0 += 4 * THREADS) {
+    load_q(e0);
+    stage_q(e0);
+  }
+
+  // the scores of chunk c, from its K rows in kbuf, into s [rows][P]
+  const int p = tid;
+  auto score = [&](int c, float* s) {
+    if constexpr (MMA) {
+      // a warp MT m tiles of 16 positions by an n tile of 8 query rows,
+      // the K rows as the A fragments, the bf16 queries as B; the m tiles'
+      // products interleaved.  A k step's 16 d fall to the fragments'
+      // k slots permuted, the same way in A and B (a dot product in
+      // another fixed order): lane t4's k 2 t4, 2 t4 + 1 take d k0 + 4 t4,
+      // + 1 and its k 2 t4 + 8, + 9 take d k0 + 4 t4 + 2, + 3, so one word
+      // of each K row and one 8-byte read of each query row feed a step
+      constexpr int MT = P / (16 * WARPS);
+      for (int n0 = 0; n0 < nq; n0 += 8) {
+        float acc[MT][4] = {};
+        const unsigned short* q_row = qb + (n0 + g8) * qbs + 4 * t4;
+#pragma unroll 4
+        for (int k0 = 0; k0 < D; k0 += 16) {
+          const uint2 bq = *reinterpret_cast<const uint2*>(q_row + k0);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const unsigned char* k_lo =
+                kbuf + ((warp + mt * WARPS) * 16 + g8) * kst + 4 * t4 + k0;
+            uint32_t af[4];
+            codes4_bf16(*reinterpret_cast<const unsigned*>(k_lo), af[0],
+                        af[2]);
+            codes4_bf16(*reinterpret_cast<const unsigned*>(k_lo + 8 * kst),
+                        af[1], af[3]);
+            mma_16816(acc[mt], af, bq.x, bq.y);
+          }
+        }
+        // acc[mt]: positions m0 + g8 (+ 8), query rows n0 + 2 t4 (+ 1)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int pp = (warp + mt * WARPS) * 16 + g8 + (e / 2) * 8;
+            const int r = n0 + 2 * t4 + e % 2;
+            if (r < nq)
+              s[r * P + pp] =
+                  c * P + pp < nvr[r]
+                      ? over_sqrt_d(a, __fmul_rn(acc[mt][e], ksm[pp]))
+                      : -INFINITY;
+          }
+      }
+    } else {
+      const int n = min(P, nv_max - c * P), pos = c * P + p;
+      const float ksc = p < n ? ksm[p] : 0.f;
+      for (int r0 = 0; r0 < nq; r0 += QS) {
+        float acc[QS];
+#pragma unroll
+        for (int rr = 0; rr < QS; ++rr) acc[rr] = 0.f;
+        if (p < n) dot_rows<W>(kbuf + p * kst, qs + r0 * D, D, acc);
+#pragma unroll
+        for (int rr = 0; rr < QS; ++rr) {
+          const int r = r0 + rr;
+          if (r < nq)
+            s[r * P + p] = pos < nvr[r]
+                               ? over_sqrt_d(a, __fmul_rn(acc[rr], ksc))
+                               : -INFINITY;
+        }
+      }
+    }
+  };
+  // chunk i's scores into its slot (slot 0 when streamed), its K rows in
+  // flight unless this is the first chunk (whose V rows then follow); the
+  // block's threads meet before the scores (not after them)
+  auto scores_of = [&](int i, bool first_chunk) {
+    const int c = attn::chunk_of(rank, i, C), slot = held ? i : 0;
+    if (!first_chunk) {
+      __syncthreads();   // the last chunk's codes are read
+      load_k(c, vsm + slot * P);
+    }
+    cp_async_wait<0>();
+    if (first_chunk) {
+      copy_rows(a.v8, vbuf, vst, c);
+      cp_async_commit();
+    }
+    __syncthreads();
+    float* s = sc + slot * rows * P;
+    score(c, s);
+    return s;
+  };
+  // exp(s - m) over row r of chunk c's scores s, in place; the chunk's
+  // sum in a fixed order (on every lane)
+  auto exp_row = [&](float* s, int c, int r, float m) {
+    const int nv = nvr[r];
+    float part = 0.f;
+#pragma unroll
+    for (int k = 0; k < P / 32; ++k) {
+      const int pp = lane + 32 * k;
+      const float e = c * P + pp < nv ? expf(__fsub_rn(s[r * P + pp], m)) : 0.f;
+      s[r * P + pp] = e;
+      part = __fadd_rn(part, e);
+    }
+    return warp_sum(part);
+  };
+  // the cluster's max of row r (every lane)
+  auto row_max = [&](int r) {
+    return warp_max(lane < C ? mxin[lane * rows + r] : -INFINITY);
+  };
+
+  // row r's max over the scores of slots [0, n)
+  auto slots_max = [&](int r, int n) {
+    float m = -INFINITY;
+    for (int i = 0; i < n; ++i)
+#pragma unroll
+      for (int k = 0; k < P / 32; ++k)
+        m = fmaxf(m, sc[(i * rows + r) * P + lane + 32 * k]);
+    return warp_max(m);
+  };
+
+  // 1. the scores of the block's chunks (streamed: each slot's max
+  // folded in before the next chunk's scores take the slot)
+  for (int i = 0; i < mine; ++i) {
+    scores_of(i, i == 0);
+    if (held) continue;
+    __syncthreads();
+    for (int r = warp; r < nq; r += WARPS) {
+      const float m = slots_max(r, 1);
+      if (lane == 0) mxr[r] = i == 0 ? m : fmaxf(mxr[r], m);
+    }
   }
   __syncthreads();
-  for (int e = tid; e < D; e += ATTN_THREADS) {
-    float o = 0.f;
-    for (int grp = 0; grp < groups; ++grp)
-      o = __fadd_rn(o, vpart[grp * D + e]);
-    store_f<BF16>(out, qrow * D + e, o);
+  // the block's max into every block's inbox
+  cluster_wait();   // every block of the cluster has started
+  for (int r = warp; r < nq; r += WARPS) {
+    const float m = held ? slots_max(r, mine) : mine > 0 ? mxr[r] : -INFINITY;
+    if (lane < C) cluster.map_shared_rank(mxin, lane)[rank * rows + r] = m;
+  }
+  cluster.sync();
+
+  // 2. a round at a time: exp(s - max) and the chunk's sum into every
+  // block's inbox, then each row's sum over the round's chunks in chunk
+  // order
+  for (int i = 0; i < rounds; ++i) {
+    float* in = psin + i % 2 * C * rows;
+    if (i < mine) {
+      const int c = attn::chunk_of(rank, i, C);
+      float* s = sc + i * rows * P;
+      if (!held) {   // the scores again: the same bits
+        s = scores_of(i, false);
+        __syncthreads();
+      }
+      for (int r = warp; r < nq; r += WARPS) {
+        const float part = exp_row(s, c, r, row_max(r));
+        if (lane < C) cluster.map_shared_rank(in, lane)[rank * rows + r] = part;
+      }
+    }
+    cluster.sync();
+    // row r's sum so far, kept by its warp (the same rows a warp in the
+    // weights below)
+    for (int r = warp; r < nq; r += WARPS) {
+      const int kn = min(C, attn::chunks(nvr[r]) - i * C);
+      float total = i > 0 ? tot[r] : 0.f;
+#pragma unroll 8
+      for (int k = 0; k < kn; ++k) total = __fadd_rn(total, in[k * rows + r]);
+      __syncwarp();
+      if (lane == 0) tot[r] = total;
+      __syncwarp();
+    }
+  }
+
+  // 3. a round at a time: the weights and the V pass of the block's chunk,
+  // each element of its partial into the inbox of the block that ends it,
+  // which adds the round's chunks in chunk order onto its sum so far
+  const int quads = D / 4, groups = THREADS / quads;
+  const int grp = tid / quads, d0 = (tid % quads) * 4;
+  const int e_end = min(nq * D, (rank + 1) * per);
+  for (int i = 0; i < rounds; ++i) {
+    float* in = oin + i % attn::obufs(a.rounds) * C * per;
+    if (i < mine) {
+      const int c = attn::chunk_of(rank, i, C), slot = held ? i : 0;
+      const int n = min(P, nv_max - c * P);
+      if (i > 0) {   // the last round's V rows are read
+        copy_rows(a.v8, vbuf, vst, c);
+        cp_async_commit();
+      }
+      float* s = sc + slot * rows * P;
+      if (!held) {   // the scores and their exps again: the same bits
+        s = scores_of(i, false);
+        __syncthreads();
+        for (int r = warp; r < nq; r += WARPS) exp_row(s, c, r, row_max(r));
+      }
+      // the probabilities rounded to the dtype, times v_scale rounded to
+      // the dtype (a product in the dtype)
+      for (int r = warp; r < nq; r += WARPS) {
+        const int nv = nvr[r];
+        const float total = tot[r];
+#pragma unroll
+        for (int k = 0; k < P / 32; ++k) {
+          const int pp = lane + 32 * k;
+          if (!MMA && c * P + pp >= nv) break;
+          float w = 0.f;
+          if (c * P + pp < nv) {
+            const float pr = __fdiv_rn(s[r * P + pp], total);
+            const float vscale = vsm[slot * P + pp];
+            w = BF16 ? round_bf16(__fmul_rn(round_bf16(pr), round_bf16(vscale)))
+                     : __fmul_rn(pr, vscale);
+          }
+          if constexpr (MMA)   // bf16 already: exact
+            wb[(slot * wrows + r) * attn::WBS + pp] = __float2bfloat16_rn(w);
+          else
+            s[r * P + pp] = w;
+        }
+      }
+      cp_async_wait<0>();   // the V rows
+      __syncthreads();
+      if constexpr (MMA) {
+        // a warp an m tile of 16 query rows by an n tile of 8 d, k the
+        // positions: the weights by ldmatrix (A), V's codes down a column
+        // (B)
+        const int mts = (nq + 15) / 16, nts = D / 8;
+        const bf16* wt = wb + slot * wrows * attn::WBS;
+        for (int job = warp; job < mts * nts; job += WARPS) {
+          const int m0 = job / nts * 16, col = job % nts * 8 + g8;
+          // even and odd k steps into two sums (two products in flight),
+          // added at the end
+          float acc[4] = {0.f, 0.f, 0.f, 0.f}, odd[4] = {0.f, 0.f, 0.f, 0.f};
+          const bf16* w_at = wt + (m0 + lane % 8 + (lane / 8) % 2 * 8) *
+                                      attn::WBS + lane / 16 * 8;
+          const unsigned char* v_at = vbuf + 2 * t4 * vst + col;
+          auto step = [&](float (&sum)[4], int k0) {
+            uint32_t af[4], b0, b1;
+            flash_mma::ldsm_x4(af, w_at + k0);
+            const unsigned char* v0 = v_at + k0 * vst;
+            codes4_bf16(v0[0] | v0[vst] << 8 | v0[8 * vst] << 16 |
+                            static_cast<unsigned>(v0[9 * vst]) << 24,
+                        b0, b1);
+            mma_16816(sum, af, b0, b1);
+          };
+          for (int k0 = 0; k0 < n; k0 += 32) {
+            step(acc, k0);
+            if (k0 + 16 < n) step(odd, k0 + 16);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], odd[e]);
+          // acc: query rows m0 + g8 (+ 8), d job % nts * 8 + 2 t4 (+ 1)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = m0 + g8 + (e / 2) * 8;
+            if (r >= nq) continue;
+            const int el = r * D + job % nts * 8 + 2 * t4 + e % 2;
+            const int owner = el / per;
+            cluster.map_shared_rank(in, owner)[rank * per + el - owner * per] =
+                acc[e];
+          }
+        }
+      } else {
+        for (int r0 = 0; r0 < nq; r0 += QS) {
+          const int nr = min(QS, nq - r0);
+          if (grp < groups) {
+            float acc[QS][4];
+#pragma unroll
+            for (int rr = 0; rr < QS; ++rr)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) acc[rr][k] = 0.f;
+#pragma unroll 4
+            for (int pp = grp; pp < n; pp += groups) {
+              float vf[4];
+              widen4(*reinterpret_cast<const unsigned*>(vbuf + pp * vst + d0),
+                     vf);
+#pragma unroll
+              for (int rr = 0; rr < QS; ++rr) {
+                const float wt = s[(r0 + rr) * P + pp];
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  acc[rr][k] = fmaf(wt, vf[k], acc[rr][k]);
+              }
+            }
+#pragma unroll
+            for (int rr = 0; rr < QS; ++rr)
+              if (rr < nr)
+                *reinterpret_cast<float4*>(vred + (grp * QS + rr) * D + d0) =
+                    make_float4(acc[rr][0], acc[rr][1], acc[rr][2],
+                                acc[rr][3]);
+          }
+          __syncthreads();
+          for (int e = tid; e < nr * D; e += THREADS) {
+            const int rr = e / D, d = e % D;
+            float o = 0.f;
+#pragma unroll 8
+            for (int g2 = 0; g2 < groups; ++g2)
+              o = __fadd_rn(o, vred[(g2 * QS + rr) * D + d]);
+            const int el = (r0 + rr) * D + d, owner = el / per;
+            cluster.map_shared_rank(in, owner)[rank * per + el - owner * per] =
+                o;
+          }
+          __syncthreads();
+        }
+      }
+    }
+    cluster.sync();
+    // this block's share of the outputs: the round's chunks in order
+    for (int e = rank * per + tid; e < e_end; e += THREADS) {
+      const int r = e / D, d = e % D, at = e - rank * per;
+      const int kn = min(C, attn::chunks(nvr[r]) - i * C);
+      float o = i > 0 ? oacc[at] : 0.f;
+#pragma unroll 8
+      for (int k = 0; k < kn; ++k) o = __fadd_rn(o, in[k * per + at]);
+      if (i + 1 < rounds) {
+        oacc[at] = o;
+        continue;
+      }
+      const int jj = r / G, g = r % G;
+      store_f<BF16>(a.out,
+                    ((static_cast<long long>(b) * a.T + j0 + jj) * a.H +
+                     h * G + g) * D + d,
+                    o);
+    }
   }
 }
 
 // ----------------------------------------------------------------- K7
-// One warp a (b, t, head, K or V) row of D elements of x [B, T, KV, D];
-// writes q [B, max_len, KV, D] int8 and scale [B, max_len, KV] f32 at
-// position (lengths ? lengths[b] : base) + t, dropped past max_len.
-template <bool BF16>
-__global__ void kv_quantize_kernel(const void* __restrict__ xk,
-                                   const void* __restrict__ xv,
-                                   int8_t* __restrict__ qk,
-                                   int8_t* __restrict__ qv,
-                                   float* __restrict__ sk,
-                                   float* __restrict__ sv,
-                                   const long long* __restrict__ lengths,
-                                   long long base, int B, int T, int KV, int D,
-                                   int max_len) {
-  const long long rows = static_cast<long long>(B) * T * KV;
-  const long long w = (static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (w >= 2 * rows) return;
-  const bool is_v = w >= rows;
-  const long long r = is_v ? w - rows : w;
-  const int h = static_cast<int>(r % KV);
-  const long long bt = r / KV;
-  const int t = static_cast<int>(bt % T);
-  const int b = static_cast<int>(bt / T);
-  const long long pos = (lengths ? lengths[b] : base) + t;
-  if (pos < 0 || pos >= max_len) return;   // mode="drop"
-  const void* x = is_v ? xv : xk;
-  float vals[MAXD / 32];
-  float amax = 0.f;
+constexpr int KVQ_THREADS = 256;
+constexpr int KVQ_ELEMS = 8;    // elements a lane
+
+struct KvqArgs {
+  const void* xk;
+  const void* xv;
+  int8_t* qk;
+  int8_t* qv;
+  float* sk;
+  float* sv;
+  const long long* lengths;
+  long long base;
+  int per_b, KV, D, max_len, shift;   // per_b: T * KV; 2^shift lanes a row
+  int flat;   // x's rows are the cache's (no lengths, base 0, T = max_len:
+              // the rows entry, whose cells need no position; 7 % faster at
+              // a prefill stack, 0.0302-0.0313 ms against 0.0326-0.0345)
+};
+
+// Grid (lanes of a batch row's rows / KVQ_THREADS, B, 2: K then V): no
+// index division, and 32-bit lane indices (a batch row of 2^32 lanes would
+// be a K and a V past the card's memory).
+// 2^shift lanes a (b, t, head) row of D elements of x [B, T, KV, D],
+// KVQ_ELEMS elements a lane: one
+// 16-byte load (bf16) or two (f32) and one 8-byte store of the codes
+// where D % 8 == 0 and the tensors are so aligned (VEC), element by
+// element otherwise.  The absmax by shuffles within the row's lanes, an
+// IEEE divide (not a reciprocal), rounding half to even (the conversion's
+// .rni, as rintf), the clip; lane 0 writes the scale.  q [B, max_len, KV,
+// D] int8 and scale [B, max_len, KV] f32 at position (lengths ?
+// lengths[b] : base) + t, dropped past max_len.
+template <bool BF16, bool VEC>
+__global__ void __launch_bounds__(KVQ_THREADS)
+kv_quantize_kernel(const KvqArgs a) {
+  const int b = blockIdx.y;
+  const bool is_v = blockIdx.z != 0;
+  const unsigned t = blockIdx.x * KVQ_THREADS + threadIdx.x;
+  const unsigned j = t >> a.shift;   // the row within batch row b
+  const int d0 = static_cast<int>(t & ((1u << a.shift) - 1)) * KVQ_ELEMS;
+  const bool live = j < static_cast<unsigned>(a.per_b) && d0 < a.D;
+  const long long at = (static_cast<long long>(b) * a.per_b + j) * a.D + d0;
+  const void* x = is_v ? a.xv : a.xk;
+  float v[KVQ_ELEMS];
 #pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
-    const int d = lane + 32 * i;
-    vals[i] = d < D ? load_f<BF16>(x, r * D + d) : 0.f;
-    amax = fmaxf(amax, fabsf(vals[i]));
-  }
-  amax = warp_max(amax);
-  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
-  const long long at = (static_cast<long long>(b) * max_len + pos) * KV + h;
-  int8_t* dst = (is_v ? qv : qk) + at * D;
+  for (int i = 0; i < KVQ_ELEMS; ++i) v[i] = 0.f;
+  if (live) {
+    if constexpr (VEC && BF16) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(
+          static_cast<const unsigned short*>(x) + at));
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) {
-      const float c = fminf(fmaxf(rintf(__fdiv_rn(vals[i], scale)), -127.f),
-                            127.f);
-      dst[d] = static_cast<int8_t>(static_cast<int>(c));
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else if constexpr (VEC) {
+      const float4* src =
+          reinterpret_cast<const float4*>(static_cast<const float*>(x) + at);
+      const float4 lo = __ldg(src), hi = __ldg(src + 1);
+      v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+      v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < KVQ_ELEMS; ++i)
+        if (d0 + i < a.D) v[i] = load_f<BF16>(x, at + i);
     }
   }
-  if (lane == 0) (is_v ? sv : sk)[at] = scale;
+  // the cache row written (its position * KV + head within row b), -1
+  // for none: past max_len the row is read, not written
+  long long cell = -1;
+  if (live && a.flat) {
+    cell = static_cast<long long>(b) * a.per_b + j;
+  } else if (live) {
+    const long long slot = (a.lengths ? a.lengths[b] : a.base) * a.KV + j;
+    if (slot >= 0 && slot < static_cast<long long>(a.max_len) * a.KV)
+      cell = (static_cast<long long>(b) * a.max_len) * a.KV + slot;
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < KVQ_ELEMS; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  // every lane of the warp takes part: a row's lanes are aligned
+  for (int o = (1 << a.shift) >> 1; o > 0; o >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(~0u, amax, o));
+  if (cell < 0) return;
+  const float scale = amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+  int8_t* dst = (is_v ? a.qv : a.qk) + cell * a.D + d0;
+  unsigned codes[KVQ_ELEMS];
+#pragma unroll
+  for (int i = 0; i < KVQ_ELEMS; ++i)
+    codes[i] = static_cast<unsigned>(min(max(
+                   __float2int_rn(__fdiv_rn(v[i], scale)), -127), 127)) &
+               0xffu;
+  if constexpr (VEC) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(
+        codes[0] | codes[1] << 8 | codes[2] << 16 | codes[3] << 24,
+        codes[4] | codes[5] << 8 | codes[6] << 16 | codes[7] << 24);
+  } else {
+#pragma unroll
+    for (int i = 0; i < KVQ_ELEMS; ++i)
+      if (d0 + i < a.D) dst[i] = static_cast<int8_t>(codes[i]);
+  }
+  if (d0 == 0) (is_v ? a.sv : a.sk)[cell] = scale;
+}
+
+template <bool BF16, bool VEC, bool HELD>
+int launch_attn(const AttnArgs& a, const attn::Plan& p, int B,
+                cudaStream_t stream) {
+  static bool smem_set[MAX_DEVICES];
+  const auto kernel = decode_attn_kernel<BF16, VEC, HELD>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel),
+                               attn::SMEM_MAX, smem_set);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster * p.tiles, a.KV, B);
+  cfg.blockDim = dim3(attn::THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool BF16, bool VEC>
+int launch_kvq(const KvqArgs& a, int B, cudaStream_t stream) {
+  const long long lanes = static_cast<long long>(a.per_b) << a.shift;
+  const dim3 grid(
+      static_cast<unsigned>((lanes + KVQ_THREADS - 1) / KVQ_THREADS), B, 2);
+  if (static_cast<long long>(grid.x) * KVQ_THREADS > 0xffffffffLL)
+    return cudaErrorInvalidValue;   // a batch row's lanes in 32 bits
+  kv_quantize_kernel<BF16, VEC><<<grid, KVQ_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1059,7 +1604,9 @@ extern "C" void psdt_int8_serve_limits(int* out) {
   out[1] = RUN_GROUPS;
   out[2] = SKINNY_M;
   out[3] = MAXD;
-  out[4] = ATTN_THREADS;
+  out[4] = attn::THREADS;
+  out[5] = attn::P;
+  out[6] = attn::CLUSTER;
 }
 
 // Which K5 kernel psdt_int8_wdot launches for these operands: 0 the
@@ -1087,23 +1634,36 @@ extern "C" int psdt_decode_attention_int8(
     const float* ks, const float* vs, const long long* lengths,
     long long base, void* out, int B, int T, int H, int KV, int D,
     int max_len, float sqrt_d, void* stream) {
-  if (B < 1 || T < 1 || KV < 1 || H % KV || D < 4 ||
-      D % 4 || D > MAXD || max_len < 1)
+  if (B < 1 || T < 1 || KV < 1 || H % KV || D < 4 || D % 4 || D > MAXD ||
+      max_len < 1 || B > 65535 || KV > 65535)
     return cudaErrorInvalidValue;
-  const int groups = ATTN_THREADS / (D / 4);
-  const size_t bytes = sizeof(float) *
-      (static_cast<size_t>(max_len) + D + groups * D + ATTN_THREADS / 32);
-  auto kernel = q_bf16 ? decode_attn_kernel<true> : decode_attn_kernel<false>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+  // the most positions a query of the call sees (the lengths lie on the
+  // card: a ragged call plans for the whole cache)
+  const int vis = lengths ? max_len : attn::visible(base + T - 1, max_len);
+  const attn::Plan p = attn::plan(T, H / KV, D, vis);
+  if (p.smem == 0) return cudaErrorInvalidValue;
+  int e2 = 0;
+  const float inv = std::frexp(sqrt_d, &e2) == 0.5f ? 1.f / sqrt_d : 0.f;
+  const AttnArgs a{q,      k8,     v8,       ks,     vs,     lengths,
+                   base,   out,    T,        H,      KV,     D,
+                   max_len, p.tile, p.rounds, p.hold, sqrt_d, inv};
+  const bool vec = D % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(k8) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(v8) & 15) == 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool held = p.hold >= p.rounds;
+  if (q_bf16) {
+    if (vec)
+      return held ? launch_attn<true, true, true>(a, p, B, s)
+                  : launch_attn<true, true, false>(a, p, B, s);
+    return held ? launch_attn<true, false, true>(a, p, B, s)
+                : launch_attn<true, false, false>(a, p, B, s);
   }
-  const dim3 grid(T, H, B);
-  kernel<<<grid, ATTN_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      q, k8, v8, ks, vs, lengths, base, out, T, H, KV, D, max_len, sqrt_d);
-  return cudaGetLastError();
+  if (vec)
+    return held ? launch_attn<false, true, true>(a, p, B, s)
+                : launch_attn<false, true, false>(a, p, B, s);
+  return held ? launch_attn<false, false, true>(a, p, B, s)
+              : launch_attn<false, false, false>(a, p, B, s);
 }
 
 // K7.  xk, xv [B, T, KV, D] (bf16 when x_bf16, else f32) into qk, qv
@@ -1114,18 +1674,23 @@ extern "C" int psdt_kv_quantize(const void* xk, const void* xv, int x_bf16,
                                 const long long* lengths, long long base,
                                 int B, int T, int KV, int D, int max_len,
                                 void* stream) {
-  if (B < 1 || T < 1 || KV < 1 || D < 1 || D > MAXD || max_len < 1)
+  if (B < 1 || B > 65535 || T < 1 || KV < 1 || D < 1 || D > MAXD ||
+      max_len < 1 || static_cast<long long>(T) * KV > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const long long threads = 2LL * B * T * KV * 32;
-  const int block = 256;
-  const long long grid = (threads + block - 1) / block;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int shift = 0;   // 2^shift lanes a row: D / KVQ_ELEMS rounded up
+  while ((KVQ_ELEMS << shift) < D) ++shift;
+  const KvqArgs a{xk,   xv,     qk, qv, sk, sv,      lengths,
+                  base, T * KV, KV, D,  max_len, shift,
+                  !lengths && base == 0 && T == max_len};
+  const bool vec = D % KVQ_ELEMS == 0 &&
+                   (reinterpret_cast<uintptr_t>(xk) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(xv) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(qk) & 7) == 0 &&
+                   (reinterpret_cast<uintptr_t>(qv) & 7) == 0;
   auto s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    kv_quantize_kernel<true><<<static_cast<unsigned>(grid), block, 0, s>>>(
-        xk, xv, qk, qv, sk, sv, lengths, base, B, T, KV, D, max_len);
-  else
-    kv_quantize_kernel<false><<<static_cast<unsigned>(grid), block, 0, s>>>(
-        xk, xv, qk, qv, sk, sv, lengths, base, B, T, KV, D, max_len);
-  return cudaGetLastError();
+    return vec ? launch_kvq<true, true>(a, B, s)
+               : launch_kvq<true, false>(a, B, s);
+  return vec ? launch_kvq<false, true>(a, B, s)
+             : launch_kvq<false, false>(a, B, s);
 }

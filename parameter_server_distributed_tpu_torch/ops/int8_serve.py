@@ -41,8 +41,10 @@ RUN_GROUPS = 8       # groups of K5's runs (a fixed summation order)
 SKINNY_M = 16        # K5 rows up to which the skinny shape runs
 # K5's kernels, as psdt_int8_wdot_shape numbers them
 WDOT_SHAPES = ("skinny", "tensor_cores", "tiled")
-MAXD = 256           # head dim (K6, K7)
-ATTN_THREADS = 256
+MAXD = 256           # most head dim (K6, K7)
+ATTN_THREADS = 256   # K6's block (csrc/decode_attn_plan.h)
+ATTN_CHUNK = 256     # K6's positions a chunk: sums run chunk by chunk
+ATTN_CLUSTER = 8     # K6's most blocks a cluster
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -139,9 +141,10 @@ def _lib() -> ctypes.CDLL:
         from . import build
 
         lib = build.load("int8_serve")
-        limits = (ctypes.c_int * 5)()
+        limits = (ctypes.c_int * 7)()
         lib.psdt_int8_serve_limits(limits)
-        want = (KSEG, RUN_GROUPS, SKINNY_M, MAXD, ATTN_THREADS)
+        want = (KSEG, RUN_GROUPS, SKINNY_M, MAXD, ATTN_THREADS, ATTN_CHUNK,
+                ATTN_CLUSTER)
         if tuple(limits) != want:
             raise RuntimeError(f"csrc/int8_serve.cu limits {tuple(limits)} "
                                f"differ from {want}")

@@ -3,9 +3,11 @@ ops/int8_serve.py) against their plain PyTorch versions on the same
 inputs: K5 ``int8_wdot`` and K6 ``decode_attention_int8`` in f32 within
 rtol 2e-5, atol 2e-5 (tests/test_quant.py's tolerance for wdot) and in
 bf16 within 2^-7 of the output's largest magnitude (bf16 rows above 16
-with aligned 16-byte chunks take K5's wgmma kernel); K7 ``kv_quantize``
-byte for byte.  Marked ``cuda``; skips without a card.  On one, run
-``python -m pytest --noconftest tests/test_torch_cuda_int8.py -m cuda``.
+with aligned 16-byte chunks take K5's wgmma kernel); K6 bit for bit
+against itself (a row alone against the same row in a batch, a call
+against another); K7 ``kv_quantize`` byte for byte.  Marked ``cuda``;
+skips without a card.  On one, run ``python -m pytest --noconftest
+tests/test_torch_cuda_int8.py -m cuda``.
 Imports neither ``jax`` nor the JAX package.  Inputs are seeded with
 numpy; odd sizes reach the kernels' ragged edges."""
 
@@ -48,8 +50,13 @@ def _close(got, want, dtype):
 
 
 def _same(a, b):
-    return (a.shape == b.shape
-            and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
+    """The same shape, dtype and bytes (bf16 compared through its bytes:
+    numpy has no bf16)."""
+    def raw(x):
+        return x.detach().cpu().contiguous().view(torch.uint8).numpy()
+
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and raw(a).tobytes() == raw(b).tobytes())
 
 
 # the skinny kernel's edges (1 and 16 rows, N off its 4-column words and
@@ -143,11 +150,43 @@ def _cache(rng, b, max_len, kv, d, dev):
     return k8, v8, ks, vs
 
 
+def _limits(rng, b, max_len):
+    """Row limits: K6's chunk edges (0, P - 2 .. P + 1, 2P), or in a cache
+    of many rounds (a round: a chunk for each block of a cluster) the
+    round's edges, the cache's last position and past it (a retired lane
+    keeps going) where the cache holds them, random ones for the other
+    rows."""
+    p = i8.ATTN_CHUNK
+    edges = [0, p - 2, p - 1, p, p + 1, 2 * p, max_len - 1, max_len + 3]
+    rnd = p * i8.ATTN_CLUSTER
+    if max_len > 4 * rnd:
+        edges = [0, p + 1, rnd - 1, rnd, rnd + 1, 3 * rnd + 7, max_len - 1,
+                 max_len + 3]
+    lens = rng.integers(0, max_len, b)
+    if max_len > 2 * p:
+        lens[:min(b, len(edges))] = edges[:b]
+    else:
+        lens[0] = max_len + 3
+    return lens
+
+
+# (B, T, H, KV, D, max_len): the serving round (G 4, D 64), the extension
+# (one row, 256 queries after a 1024-token prefix), G 1 (MHA), G 4 and 8,
+# D 12 (4-byte copies), 64, 128 and 256, T > 1 across chunk edges, caches
+# of one chunk and of several; long caches: 10 rounds held in shared
+# memory, 28 rounds streamed through one slot (57,344 positions), the
+# head_dim-128 model's 16,384 and an extension of 64 queries there
+ATTN_CASES = [(8, 1, 16, 4, 64, 2048), (1, 256, 16, 4, 64, 1280),
+              (2, 5, 4, 2, 12, 40), (3, 16, 8, 8, 128, 96),
+              (8, 1, 8, 1, 256, 600), (8, 4, 16, 16, 64, 1100),
+              (8, 6, 8, 2, 12, 700), (8, 2, 16, 2, 128, 520),
+              (8, 1, 16, 4, 64, 20000), (8, 1, 16, 4, 64, 57344),
+              (2, 5, 8, 8, 128, 16384), (1, 64, 16, 4, 64, 16384)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,h,kv,d,max_len", [(8, 1, 16, 4, 64, 2048),
-                                                (2, 5, 4, 2, 12, 40),
-                                                (3, 16, 8, 8, 128, 96)])
+@pytest.mark.parametrize("b,t,h,kv,d,max_len", ATTN_CASES)
 @pytest.mark.parametrize("ragged", [True, False])
 def test_decode_attention_int8_matches_plain(card, dtype, b, t, h, kv, d,
                                              max_len, ragged):
@@ -155,10 +194,10 @@ def test_decode_attention_int8_matches_plain(card, dtype, b, t, h, kv, d,
     q = _randn(rng, (b, t, h, d), dtype, card)
     cache = _cache(rng, b, max_len, kv, d, card)
     if ragged:
-        # limits from 0 to past the cache (a retired lane keeps going)
-        lens = rng.integers(0, max_len, b)
-        lens[0] = max_len + 3
-        lengths = torch.from_numpy(lens.astype(np.int64)).to(card)
+        lengths = torch.from_numpy(_limits(rng, b, max_len).astype(
+            np.int64)).to(card)
+        if b == 1:
+            lengths[0] = max_len - t
         base = 0
     else:
         lengths, base = None, max_len // 3
@@ -172,17 +211,71 @@ def test_decode_attention_int8_matches_plain(card, dtype, b, t, h, kv, d,
 
 
 @pytest.mark.cuda
-def test_decode_attention_int8_reads_nothing_past_the_limit(card):
-    """Garbage (NaN scales) past each row's limit leaves the result as
-    it was."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,h,kv,d,max_len", [(1, 16, 4, 64, 2048),
+                                              (5, 8, 8, 128, 2048),
+                                              (1, 16, 4, 64, 40000)])
+def test_decode_attention_int8_rows_do_not_depend_on_the_batch(card, dtype,
+                                                               t, h, kv, d,
+                                                               max_len):
+    """Each row of an 8-row serving batch (max_len 2048, or 40,000, whose
+    call streams its rounds) is the same bits computed alone (B 1) against
+    a cache of another max_len (whose call holds its rounds where they
+    fit): the chunks' sums run in chunk order whatever the cluster, the
+    rounds, the batch or the cache."""
+    rng = np.random.default_rng(t * 10 + d)
+    b = 8
+    q = _randn(rng, (b, t, h, d), dtype, card)
+    cache = _cache(rng, b, max_len, kv, d, card)
+    lens = _limits(rng, b, max_len)
+    lens = np.minimum(lens, max_len - t)
+    full = i8.decode_attention_int8(
+        q, *cache, lengths=torch.from_numpy(lens).to(card))
+    for row, length in enumerate(lens):
+        width = int(length) + t + 37 * (row + 1)
+        alone = i8.decode_attention_int8(
+            q[row:row + 1].contiguous(),
+            *(x[row:row + 1, :width].contiguous() for x in cache),
+            lengths=torch.tensor([int(length)], device=card))
+        assert _same(alone, full[row:row + 1]), row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,d,max_len", ATTN_CASES[:2])
+def test_decode_attention_int8_calls_give_the_same_bytes(card, dtype, b, t,
+                                                         h, kv, d, max_len):
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (b, t, h, d), dtype, card)
+    cache = _cache(rng, b, max_len, kv, d, card)
+    lengths = torch.from_numpy(
+        np.minimum(_limits(rng, b, max_len), max_len - t)).to(card)
+    first = i8.decode_attention_int8(q, *cache, lengths=lengths)
+    assert _same(i8.decode_attention_int8(q, *cache, lengths=lengths), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,kv,d,max_len,lens",
+                         [(2, 3, 4, 2, 16, 32, [5, 20]),
+                          (8, 1, 16, 4, 64, 2048,
+                           [300, 1000, 255, 256, 700, 1500, 2000, 129]),
+                          (2, 4, 16, 4, 64, 2048, [510, 1290]),
+                          (2, 1, 16, 4, 64, 40000, [30001, 2100])])
+def test_decode_attention_int8_reads_nothing_past_the_limit(card, b, t, h,
+                                                            kv, d, max_len,
+                                                            lens):
+    """Garbage (NaN scales) past each row's last query's limit leaves the
+    result as it was; the serving-size limits end inside a chunk."""
     rng = np.random.default_rng(5)
-    q = _randn(rng, (2, 3, 4, 16), torch.float32, card)
-    k8, v8, ks, vs = _cache(rng, 2, 32, 2, 16, card)
-    lengths = torch.tensor([5, 20], dtype=torch.int64, device=card)
+    q = _randn(rng, (b, t, h, d), torch.float32, card)
+    k8, v8, ks, vs = _cache(rng, b, max_len, kv, d, card)
+    lengths = torch.tensor(lens, dtype=torch.int64, device=card)
     clean = i8.decode_attention_int8(q, k8, v8, ks, vs, lengths=lengths)
     ks2, vs2 = ks.clone(), vs.clone()
-    ks2[0, 8:] = float("nan")
-    vs2[1, 23:] = float("nan")
+    for row, length in enumerate(lens):
+        past = length + t
+        (ks2 if row % 2 else vs2)[row, past:] = float("nan")
+        (vs2 if row % 2 else ks2)[row, past + 3:] = float("nan")
     dirty = i8.decode_attention_int8(q, k8, v8, ks2, vs2, lengths=lengths)
     assert _same(clean, dirty)
 
@@ -190,9 +283,12 @@ def test_decode_attention_int8_reads_nothing_past_the_limit(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ragged", [True, False])
-def test_kv_quantize_bytes_equal_plain(card, dtype, ragged):
-    rng = np.random.default_rng(int(ragged))
-    b, t, kv, d, max_len = 4, 3, 2, 64, 10
+@pytest.mark.parametrize("d", [12, 64, 256])
+def test_kv_quantize_bytes_equal_plain(card, dtype, ragged, d):
+    """D 12 runs element by element, 64 and 256 in 16-byte loads; a zero
+    row, ties of the division (scale 1) and writes past max_len."""
+    rng = np.random.default_rng(int(ragged) + d)
+    b, t, kv, max_len = 4, 3, 2, 10
     k = _randn(rng, (b, t, kv, d), dtype, card)
     v = _randn(rng, (b, t, kv, d), dtype, card, scale=3.0)
     k[1, 0, 1] = 0.0                              # a zero row: scale 1
@@ -217,11 +313,17 @@ def test_kv_quantize_bytes_equal_plain(card, dtype, ragged):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kv_quantize_rows_bytes_equal_plain(card, dtype):
+@pytest.mark.parametrize("d,offset", [(12, 0), (64, 0), (256, 0), (64, 1)])
+def test_kv_quantize_rows_bytes_equal_plain(card, dtype, d, offset):
+    """``offset`` > 0: K is a view that starts that many elements into its
+    storage, so its rows are not 16-byte aligned (element by element)."""
     rng = np.random.default_rng(3)
-    k = _randn(rng, (3, 2048, 4, 64), dtype, card)
-    v = _randn(rng, (3, 2048, 4, 64), dtype, card, scale=0.01)
+    shape = (3, 2048, 4, d)
+    k = _randn(rng, (int(np.prod(shape)) + offset,), dtype, card)[
+        offset:].view(shape)
+    v = _randn(rng, shape, dtype, card, scale=0.01)
     v[0, 5] = 0.0
+    v[1, 7, 2, :3] = torch.tensor([0.5, 127.0, -1.5])   # ties
     got = i8.kv_quantize_rows(k, v)
     want = (*i8.kv_rows_reference(k)[:1], *i8.kv_rows_reference(v)[:1],
             i8.kv_rows_reference(k)[1], i8.kv_rows_reference(v)[1])
