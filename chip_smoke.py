@@ -22,6 +22,17 @@ two paths of the port:
   extensions of it, an exact resubmission), a 2-layer f32 model's int8
   streams token-exact against generate, and serve_main and
   generate_main with --quant=int8 --kv-cache=int8 as processes;
+- speculative serving (serve_spec): K5-K7 first held against their plain
+  versions at the shapes a speculative round gives them (K5 at 16 and 40
+  rows, K6 and K7 at a ragged verify block of 5 queries, writes past the
+  cache dropped); then the same burst on speculative DecodeServers in
+  three legs (llama_350m drafting for itself at k = 4, a random 2-layer
+  draft under the adaptive depth controller, the self-draft with int8
+  weights and cache), each in turns with plain decode and its launches
+  held to the design's counts; beam search at width 4; a 2-layer f32
+  model's speculative streams token-exact against generate (both cache
+  dtypes, the prefix cache) and beam width 1 equal to greedy; serve_main
+  --draft-model and generate_main --beam as processes;
 - training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
   flash attention, weights from a seed) taking 5 Trainer.compute_gradients
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
@@ -85,6 +96,7 @@ False), so float32 products are full float32.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import math
@@ -671,29 +683,44 @@ def dtoh_copies(torch, fn) -> int:
     tensor that is not empty, or a Python number (``.item()``,
     ``torch.equal``).  The count comes from the dispatcher, on the host,
     and does not rest on the profiler's trace."""
+    return host_syncs(torch, fn)["dtoh"]
+
+
+def host_syncs(torch, fn) -> dict:
+    """Run ``fn`` once and count, at the dispatcher, the ops that make the
+    host wait on the card: device-to-host reads (``dtoh``, as
+    dtoh_copies counts them), ``nonzero`` of a card tensor (its output
+    size is data) and copies of host tensors to the card (``htod``: a
+    pageable copy is synchronous)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
     scalar_ops = {torch.ops.aten._local_scalar_dense.default,
                   torch.ops.aten.equal.default}
+    counts = {"dtoh": 0, "nonzero": 0, "htod": 0}
 
     class Count(TorchDispatchMode):
-        copies = 0
-
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if any(isinstance(x, torch.Tensor) and x.is_cuda
-                   for x in tree_leaves((args, kwargs))):
-                if func in scalar_ops or any(
-                        isinstance(x, torch.Tensor) and not x.is_cuda
-                        and x.numel() > 0 for x in tree_leaves(out)):
-                    Count.copies += 1
+            ins = [x for x in tree_leaves((args, kwargs))
+                   if isinstance(x, torch.Tensor)]
+            outs = [x for x in tree_leaves(out)
+                    if isinstance(x, torch.Tensor)]
+            if any(x.is_cuda for x in ins):
+                if func is torch.ops.aten.nonzero.default:
+                    counts["nonzero"] += 1
+                elif func in scalar_ops or any(
+                        not x.is_cuda and x.numel() > 0 for x in outs):
+                    counts["dtoh"] += 1
+            if (any(not x.is_cuda and x.numel() > 0 for x in ins)
+                    and any(x.is_cuda for x in outs)):
+                counts["htod"] += 1
             return out
 
     with Count():
         fn()
     torch.cuda.synchronize()
-    return Count.copies
+    return counts
 
 
 def profile_window(torch, fn, names: dict[str, str],
@@ -1202,6 +1229,23 @@ def time_kv_quantize(torch, i8, inp) -> dict:
     return out
 
 
+def int8_holder(checks: dict, max_err: dict):
+    """``hold(name, label, got, want, f32)``: records in ``checks`` whether
+    a K5 or K6 result is within its tolerance of its plain version (f32:
+    rtol 2e-5, atol 2e-5; bf16: 2^-7 of the plain output's largest
+    magnitude) and raises ``max_err[name]`` to its largest difference."""
+    def hold(name, label, got, want, f32):
+        err = float((got.float() - want.float()).abs().max())
+        if f32:
+            ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+        else:
+            ok = err <= 2.0 ** -7 * float(want.float().abs().max())
+        checks[f"{name}/{label}"] = ok
+        max_err[name] = max(max_err[name], err)
+
+    return hold
+
+
 def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
     """The three kernels of csrc/int8_serve.cu against their plain
     versions on the card at the llama_350m serving shapes: int8_wdot (K5)
@@ -1221,15 +1265,7 @@ def check_int8_kernels(torch, np, gen) -> tuple[dict, dict]:
 
     checks, report = {}, {}
     max_err = {name: 0.0 for name in INT8_REPLACES}
-
-    def hold(name, label, got, want, f32):
-        err = float((got.float() - want.float()).abs().max())
-        if f32:
-            ok = bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
-        else:
-            ok = err <= 2.0 ** -7 * float(want.float().abs().max())
-        checks[f"{name}/{label}"] = ok
-        max_err[name] = max(max_err[name], err)
+    hold = int8_holder(checks, max_err)
 
     with torch.inference_mode():
         for k, n in INT8_WDOT_SHAPES:
@@ -1545,6 +1581,446 @@ def cli_int8() -> None:
              f"(exit {serve.returncode})")
     if gen.returncode != 0:
         fail(f"generate_main --quant=int8 exited {gen.returncode}")
+
+
+# the speculative serving phase (serve_spec): draft_len of its legs, the
+# rows K5 takes there (the draft's catch-up block of 8 x 2 tokens, the
+# verify block of 8 x (k + 1)), and the plain / speculative turns a leg
+SPEC_K = 4
+SPEC_ROWS = (16, 8 * (SPEC_K + 1))
+SPEC_TURNS = ("plain", "spec", "spec", "plain")
+BEAM = dict(width=4, prompt=512, new=32)     # one prompt of llama_350m
+
+
+def check_spec_kernels(torch, np, gen) -> tuple[dict, dict]:
+    """K5, K6 and K7 at the shapes speculative serving gives them, against
+    their plain versions (the tolerances of check_int8_kernels): K5 at
+    M 16 (the draft's catch-up block, the skinny kernel's limit) and M 40
+    (the verify block at k = 4: bf16 on wgmma, f32 on the tiled kernel)
+    at every llama_350m product, f32 rows bit for bit against the same
+    rows at M 1; K6 at a ragged verify block of T = 5 (8 rows, max_len
+    2048, one row straddling the cache's end and one finished row past
+    it), f32 bit for bit against 5 single-query calls; K7 at the same
+    block, byte for byte (the writes past max_len dropped).  K5 and K6
+    timed with a cold L2 in a CUDA graph (cold_ms), K7 in a graph of 20
+    writes (graph_ms), each beside its bound.  Returns (max_abs_err,
+    times) by kernel name."""
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+    checks, report = {}, {}
+    max_err = {name: 0.0 for name in INT8_REPLACES}
+    hold = int8_holder(checks, max_err)
+    heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
+    t, b, max_len = SPEC_K + 1, 8, 2048
+
+    with torch.inference_mode():
+        for k, n in INT8_WDOT_SHAPES:
+            q = torch.randint(-127, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            scale = torch.rand(n, generator=gen, device="cuda") * 1e-3 + 1e-4
+            for m in SPEC_ROWS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn((m, k), generator=gen, device="cuda",
+                                    dtype=dtype)
+                    got = i8.int8_wdot(x, q, scale)
+                    hold("int8_wdot", f"{m}x{k}x{n}/{dtype}", got,
+                         i8.int8_wdot_reference(x, q, scale),
+                         dtype == torch.float32)
+                    if dtype == torch.float32:
+                        checks[f"int8_wdot/{m}x{k}x{n}/rows_as_m1"] = all(
+                            bits_equal(torch, i8.int8_wdot(
+                                x[r:r + 1].contiguous(), q, scale),
+                                got[r:r + 1]) for r in (0, m // 2, m - 1))
+                b_ms, b_by = bound(2.0 * m * k * n, k * n + 4 * n + 2 * m * k
+                                   + 4 * m * n, "bfloat16")
+                report[f"int8_wdot {m}x{k}x{n}"] = dict(
+                    kernel=i8.int8_wdot_shape(x, q),
+                    ms=cold_ms(torch, lambda c: i8.int8_wdot(x, c, scale),
+                               q),
+                    plain_ms=cuda_ms(torch, lambda: i8.int8_wdot_reference(
+                        x, q, scale), iters=5),
+                    bound_ms=b_ms, bound_by=b_by)
+            del q, scale
+        # K6 and K7 at a ragged verify block: limits across the chunks,
+        # one row ending on the cache's last position, one straddling
+        # it, one finished row past it
+        lens = torch.tensor([129, 300, 700, 1000, 1500, max_len - t,
+                             max_len - 2, max_len + 3], dtype=torch.int64,
+                            device="cuda")
+        k8, v8 = (torch.randint(-127, 128, (b, max_len, kv, d), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand((b, max_len, kv), generator=gen, device="cuda")
+                  * 0.02 + 1e-3 for _ in range(2))
+        layer = (k8, v8, ks, vs)
+        q_bf = torch.randn((b, t, heads, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = q_bf.to(dtype)
+            got = i8.decode_attention_int8(q, *layer, lengths=lens)
+            hold("decode_attention_int8", f"verify_t{t}/{dtype}", got,
+                 i8.decode_attention_int8_reference(q, *layer, lens, 0),
+                 dtype == torch.float32)
+            if dtype == torch.float32:
+                checks[f"decode_attention_int8/verify_t{t}/as_single"] = all(
+                    bits_equal(torch, i8.decode_attention_int8(
+                        q[:, j:j + 1].contiguous(), *layer,
+                        lengths=lens + j), got[:, j:j + 1].contiguous())
+                    for j in range(t))
+        times = time_int8_attention(
+            torch, i8, {"verify_q": q_bf, "verify_cache": layer,
+                        "verify_lens": lens}, ("verify",))
+        report["decode_attention_int8"] = dict(
+            **times["verify"], plain_ms=cuda_ms(
+                torch, lambda: i8.decode_attention_int8_reference(
+                    q_bf, *layer, lens, 0), iters=5))
+        kx, vx = (torch.randn((b, t, kv, d), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        outs = [[torch.zeros((b, max_len, kv, d), dtype=torch.int8,
+                             device="cuda") for _ in range(2)]
+                + [torch.ones((b, max_len, kv), device="cuda")
+                   for _ in range(2)] for _ in range(2)]
+        i8.kv_quantize(kx, vx, *outs[0], lengths=lens)
+        i8.kv_quantize_reference(kx, vx, *outs[1], lens, 0)
+        checks[f"kv_quantize/verify_t{t}"] = all(
+            same_bytes(torch, g, w) for g, w in zip(*outs))
+        max_err["kv_quantize"] = max(float((g.float() - w.float()).abs().max())
+                                     for g, w in zip(*outs))
+        cache = outs[0]
+
+        def write():
+            i8.kv_quantize(kx, vx, *cache, lengths=lens)
+
+        kept = 2 * int(((lens[:, None] + torch.arange(t, device="cuda"))
+                        < max_len).sum()) * kv
+        b_ms, b_by = bound(3.0 * kept * d, kept * (d * (2 + 1) + 4),
+                           "float32")
+        report["kv_quantize"] = dict(
+            ms=graph_ms(torch, [write] * 20), bound_ms=b_ms, bound_by=b_by,
+            plain_ms=cuda_ms(torch, lambda: i8.kv_quantize_reference(
+                kx, vx, *outs[1], lens, 0), iters=5))
+        del outs, cache, layer, k8, v8, ks, vs
+    emit({"phase": "spec_kernels", "checks": checks, "max_abs_err": max_err,
+          **report})
+    if not all(checks.values()):
+        fail(f"an int8 serving kernel differs from its plain version at the "
+             f"verify shapes: {[k for k, ok in checks.items() if not ok]}")
+    torch.cuda.empty_cache()
+    return max_err, report
+
+
+def _spec_burst(torch, np, srv, prompts, launches_of) -> dict:
+    """One 8-request burst on ``srv`` (every request admitted at t0, then
+    rounds until idle), as ``serve`` times it: TTFT, gaps, tokens/s, the
+    launches (from 0), and tokens per target forward (a request's tokens
+    over its prefill and the rounds it took part in)."""
+    torch.cuda.synchronize()
+    launches_of(reset=True)
+    t0 = time.perf_counter()
+    ttft, gaps, rids = [], [], []
+    for p in prompts:
+        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
+        ttft.append(time.perf_counter() - t0)
+    forwards = dict.fromkeys(rids, 1)
+    while not srv.idle:
+        t1 = time.perf_counter()
+        emitted = srv.step()
+        gaps.append(time.perf_counter() - t1)
+        for rid in {rid for rid, _ in emitted}:
+            forwards[rid] += 1
+    results = srv.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = sum(len(results[r]) for r in rids)
+    return {"results": [results[r] for r in rids], "tokens": tokens,
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "ttft_p50_s": float(np.median(ttft)),
+            "gap_p50_s": float(np.median(gaps)), "rounds": len(gaps),
+            "tokens_per_target_forward": tokens / sum(forwards.values()),
+            "launches": launches_of(), "stats": srv.stats}
+
+
+def serve_spec(torch, np, fa) -> dict:
+    """Speculative serving: llama_350m (bf16, seed 0) in DecodeServers of
+    8 slots x 2048 on serve's 8-prompt burst (the same prompts), 32 new
+    tokens, greedy, in three legs: ``self`` (draft = the target, k = 4
+    pinned: every proposal agrees, the upper bound of the accept rate),
+    ``layers2`` (a 2-layer draft of llama_350m's widths, seed 1, the
+    adaptive depth controller from k = 2, cost ratio the parameter share)
+    on the native cache, and ``self_int8`` (int8 weights and cache, k = 4
+    pinned).  Each leg runs plain decode and speculation in turns (plain,
+    spec, spec, plain; a fresh server a turn) and holds every speculative
+    turn's launches to the design's counts: a prefill runs flash_fwd once
+    a layer of each model; a round runs k + 1 forwards of the target's
+    layers (the draft's catch-up block, k - 1 draft steps, the verify
+    block; draft = target), each 169 int8_wdot, 24 decode_attention_int8
+    and 24 kv_quantize on the int8 leg.  One round's host syncs are
+    counted at the dispatcher.  Then beam search at width 4 (one prompt of
+    512 tokens, 32 new), and a 2-layer f32 model (head_dim 64) with int8
+    weights whose speculative greedy streams (the server with and without
+    the prefix cache, both cache dtypes; the batched decoder) must be
+    token-exact against generate, and beam width 1 equal to greedy.
+    Returns the speculative turns' launches, summed."""
+    from parameter_server_distributed_tpu_torch.models import serving
+    from parameter_server_distributed_tpu_torch.models.generation import (
+        beam_search, generate, speculative_generate_batched)
+    from parameter_server_distributed_tpu_torch.models.quant import \
+        quantize_params
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+    model = get_model("llama_350m", dtype="bf16")
+    params = model.init_params(0, device="cuda")
+    layers = LLAMA["layers"]
+    d2 = Transformer(dataclasses.replace(model.config, n_layers=2),
+                     attention_fn=model.attention_fn)
+    d2params = d2.init_params(1, device="cuda")
+    qparams = quantize_params(params)
+    torch.cuda.empty_cache()
+    vocab = model.config.vocab
+    rng = np.random.default_rng(0)         # serve's prompts, drawn alike
+    prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+    legs = {
+        "self": dict(params=params, cache_dtype="native", draft=model,
+                     draft_params=params, adaptive_draft=False),
+        "layers2": dict(params=params, cache_dtype="native", draft=d2,
+                        draft_params=d2params, adaptive_draft=True,
+                        draft_cost_ratio=max(
+                            0.05, d2.num_params() / model.num_params())),
+        "self_int8": dict(params=qparams, cache_dtype="int8", draft=model,
+                          draft_params=qparams, adaptive_draft=False)}
+
+    def launches_of(reset=False):
+        if reset:
+            fa.reset_launches()
+            i8.reset_launches()
+            return None
+        return {**fa.launches, **i8.launches}
+
+    def server(leg, spec):
+        kw = dict(legs[leg])
+        p, cache_dtype = kw.pop("params"), kw.pop("cache_dtype")
+        if not spec:
+            kw = {}
+        return serving.DecodeServer(model, p, slots=8, max_len=2048,
+                                    cache_dtype=cache_dtype, device="cuda",
+                                    draft_len=SPEC_K, **kw)
+
+    total = {}
+    report = {}
+    for leg, kw in legs.items():
+        int8 = kw["cache_dtype"] == "int8"
+        dlayers = kw["draft"].config.n_layers
+        # warm-up outside the count: a request per prefill bucket
+        for spec in (False, True):
+            srv = server(leg, spec)
+            for n in sorted({min(serving._bucket(n), 2048)
+                             for n in PROMPT_LENS}):
+                srv.submit((prompts[0] * (n // len(prompts[0]) + 1))[:n - 16],
+                           max_new_tokens=4)
+                srv.run_to_completion()
+            del srv
+        turns = []
+        for kind in SPEC_TURNS:
+            srv = server(leg, kind == "spec")
+            turn = _spec_burst(torch, np, srv, prompts, launches_of)
+            turn["kind"] = kind
+            if kind == "spec":
+                # one round's host syncs, on a fresh burst's first round
+                srv.submit(prompts[0], max_new_tokens=NEW_TOKENS)
+                srv.submit(prompts[1], max_new_tokens=NEW_TOKENS)
+                turn["round_syncs"] = {"depth": srv.stats["draft_depth"],
+                                       **host_syncs(torch, srv.step)}
+                srv.run_to_completion()
+            del srv
+            torch.cuda.empty_cache()
+            turns.append(turn)
+        plain = [t for t in turns if t["kind"] == "plain"]
+        spec = [t for t in turns if t["kind"] == "spec"]
+        prefills = len(prompts)
+        for t in turns:
+            rounds = t["rounds"]
+            if t["kind"] == "plain":
+                want = {"flash_fwd": layers * prefills}
+                if int8:
+                    want.update(int8_wdot=(7 * layers + 1) * (prefills
+                                                              + rounds),
+                                decode_attention_int8=layers * rounds,
+                                kv_quantize=prefills + layers * rounds)
+            else:
+                want = {"flash_fwd": (layers + dlayers) * prefills}
+                if int8:
+                    fwd = (SPEC_K + 1) * rounds
+                    want.update(int8_wdot=(7 * layers + 1) * (2 * prefills
+                                                              + fwd),
+                                decode_attention_int8=layers * fwd,
+                                kv_quantize=2 * prefills + layers * fwd)
+            got = {name: n for name, n in t["launches"].items() if n}
+            t["expected_launches"] = want
+            if got != want:
+                fail(f"serve_spec leg {leg} ({t['kind']}) launches {got} "
+                     f"!= {want}")
+        for t in spec:
+            for name, n in t["launches"].items():
+                total[name] = total.get(name, 0) + n
+        agree = [sum(a == b for a, b in zip(t["results"],
+                                            plain[0]["results"]))
+                 for t in spec]
+        if not all(len(r) == NEW_TOKENS and all(0 <= x < vocab for x in r)
+                   for t in turns for r in t["results"]):
+            fail(f"serve_spec leg {leg} did not answer every request with "
+                 f"{NEW_TOKENS} in-vocab tokens")
+        med = {kind: {key: float(np.median([t[key] for t in turns
+                                            if t["kind"] == kind]))
+                      for key in ("ttft_p50_s", "gap_p50_s", "tokens_per_s",
+                                  "tokens_per_target_forward")}
+               for kind in ("plain", "spec")}
+        report[leg] = {
+            "turns": [{k: v for k, v in t.items() if k != "results"}
+                      for t in turns],
+            "median": med,
+            "spec_over_plain_tokens_per_s": (med["spec"]["tokens_per_s"]
+                                             / med["plain"]["tokens_per_s"]),
+            "accept_rate": [t["stats"]["draft_accept_rate"] for t in spec],
+            "final_draft_depth": [t["stats"]["draft_depth"] for t in spec],
+            "streams_equal_plain": agree}
+        emit({"phase": "serve_spec", "leg": leg, "model": "llama_350m",
+              "draft": ("llama_350m itself" if kw["draft"] is model
+                        else "2-layer llama_350m widths, seed 1"),
+              "dtype": ("bfloat16, int8 weights, int8 KV cache" if int8
+                        else "bfloat16, native cache"), "slots": 8,
+              "max_len": 2048, "draft_len": SPEC_K,
+              "adaptive_draft": kw["adaptive_draft"], **report[leg]})
+    # beam search at width 4
+    tok = torch.tensor([prompts[4][:BEAM["prompt"]]], device="cuda")
+    beam_search(model, params, tok, 4, beam_width=BEAM["width"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, score = beam_search(model, params, tok, BEAM["new"],
+                             beam_width=BEAM["width"])
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    emit({"phase": "beam_search", "model": "llama_350m", "dtype": "bfloat16",
+          "prompts": 1, "prompt_len": BEAM["prompt"],
+          "beam_width": BEAM["width"], "new_tokens": BEAM["new"],
+          "wall_s": beam_s, "tokens_per_s": BEAM["new"] / beam_s,
+          "score": float(score[0]),
+          "finite": bool(torch.isfinite(score).all())})
+    if out.shape != (1, BEAM["new"]) or not torch.isfinite(score).all():
+        fail(f"beam search gave {tuple(out.shape)}, score {score}")
+    del params, qparams, d2params
+    torch.cuda.empty_cache()
+
+    # f32: token-exact against generate
+    small = Transformer(TransformerConfig(
+        vocab=1024, d_model=256, n_heads=4, n_kv_heads=2, n_layers=2,
+        d_ff=512, max_seq=512, mlp_act="swiglu", dtype=torch.float32),
+        attention_fn=flash_attention_auto)          # head_dim 64
+    dense = small.init_params(1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    # a draft that agrees in part: the target's weights, perturbed
+    noisy = {name: w + 0.03 * w.std() * torch.randn(
+        w.shape, generator=g, device="cuda") if w.ndim == 2 else w
+        for name, w in dense.items()}
+    sparams, sdraft = quantize_params(dense), quantize_params(noisy)
+    base = rng.integers(0, 1024, 128).tolist()
+    longer = base + rng.integers(0, 1024, 32).tolist()
+    sprompts = {"first": base, "extended": longer,
+                "extended_twice": longer + rng.integers(0, 1024, 40).tolist(),
+                "replayed": longer}
+    exact, accept = {}, {}
+    for cache_dtype in ("native", "int8"):
+        for pcache in (0, 8):
+            ssrv = serving.DecodeServer(
+                small, sparams, slots=2, max_len=512,
+                cache_dtype=cache_dtype, prompt_cache=pcache,
+                draft=small, draft_params=sdraft, draft_len=SPEC_K,
+                adaptive_draft=False, device="cuda")
+            label = f"{cache_dtype}/prompt_cache={pcache}"
+            for name, p in sprompts.items():
+                rid = ssrv.submit(p, max_new_tokens=16)
+                got = ssrv.run_to_completion()[rid]
+                exact[f"{label}/{name}"] = got == generate(
+                    small, sparams, [p], 16,
+                    cache_dtype=cache_dtype)[0].tolist()
+            accept[label] = ssrv.stats["draft_accept_rate"]
+            if pcache and (ssrv.stats["prefix_hits"] != 2
+                           or ssrv.stats["prompt_cache_hits"] != 1):
+                fail(f"the f32 speculative server missed the prefix cache: "
+                     f"{ssrv.stats}")
+        batch = torch.tensor([rng.integers(0, 1024, 96).tolist()
+                              for _ in range(8)], device="cuda")
+        got, bstats = speculative_generate_batched(
+            small, sparams, small, sdraft, batch, 16, draft_len=SPEC_K,
+            cache_dtype=cache_dtype)
+        exact[f"{cache_dtype}/batched"] = torch.equal(
+            got, generate(small, sparams, batch, 16,
+                          cache_dtype=cache_dtype))
+        accept[f"{cache_dtype}/batched"] = bstats["draft_accept_rate"]
+    beam1, _ = beam_search(small, sparams, batch, 16, beam_width=1)
+    exact["beam_width_1"] = torch.equal(beam1, generate(small, sparams,
+                                                        batch, 16))
+    emit({"phase": "serve_spec_vs_generate_f32",
+          "model": "2-layer f32, head_dim 64, int8 weights",
+          "draft": "the same model, weights perturbed, int8",
+          "token_exact": exact, "accept_rate": accept})
+    if not all(exact.values()):
+        fail(f"f32 speculative streams differ from generate: {exact}")
+    return total
+
+
+def cli_spec() -> None:
+    """The two CLIs with the speculative and beam flags, as processes at
+    once: serve_main with llama_350m drafting for itself (--draft-seed=0,
+    --draft-len=4 pinned: every round commits several tokens a request)
+    answering 2 JSONL requests, each token streamed once and in order;
+    generate_main --beam=4 answering one prompt; both exit 0."""
+    env = dict(os.environ, PYTHONPATH=HERE, PSDT_FLASH_ATTENTION="1")
+    reqs = [{"id": 1, "tokens": list(range(100, 400)), "max_new": 9},
+            {"id": 2, "tokens": list(range(7, 50)), "max_new": 7}]
+    serve = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGE}.cli.serve_main",
+         "--model=llama_350m", "--slots=2", "--max-len=512",
+         "--draft-model=llama_350m", "--draft-seed=0", "--draft-len=4",
+         "--no-adaptive-draft"], cwd=HERE, env=env, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    gen = subprocess.Popen(
+        [sys.executable, "-m", f"{PACKAGE}.cli.generate_main",
+         "--model=llama_350m", "--beam=4", "--tokens=5,6,7,8,9",
+         "--max-new=8"], cwd=HERE, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = serve.communicate(
+            "".join(json.dumps(r) + "\n" for r in reqs), timeout=600)
+        g_out, g_err = gen.communicate(timeout=600)
+    finally:
+        for proc in (serve, gen):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    lines = [json.loads(line) for line in out.splitlines() if line.strip()]
+    done = {line["id"]: line["tokens"] for line in lines if line.get("done")}
+    streamed: dict = {}
+    for line in lines:
+        if "token" in line:
+            streamed.setdefault(line["id"], []).append(line["token"])
+    stats = err.split("serving stats: ")[-1].strip()
+    emit({"phase": "cli_spec", "serve_returncode": serve.returncode,
+          "done": {k: len(v) for k, v in done.items()},
+          "serve_stats": stats[-400:], "serve_stderr_tail": err[-300:],
+          "generate_returncode": gen.returncode,
+          "generate_stdout": g_out[-200:],
+          "generate_stderr_tail": g_err[-300:]})
+    if (serve.returncode != 0 or sorted(done) != [1, 2]
+            or any(streamed.get(r["id"]) != done[r["id"]]
+                   or len(done[r["id"]]) != r["max_new"] for r in reqs)):
+        fail(f"serve_main --draft-model answered {sorted(done)} of 2 "
+             f"requests, streamed {streamed} (exit {serve.returncode})")
+    if gen.returncode != 0 or len(g_out.strip().split(",")) != 8:
+        fail(f"generate_main --beam=4 exited {gen.returncode}: {g_out!r}")
 
 
 def model_flops_per_step(model, batch: int, seq: int) -> float:
@@ -3377,6 +3853,14 @@ def main() -> int:
     max_err.update(da_err)
     i8_err, i8_t = check_int8_kernels(torch, np, gen)
     max_err.update(i8_err)
+    spec_err, spec_t = check_spec_kernels(torch, np, gen)
+    for name, err in spec_err.items():
+        max_err[name] = max(max_err[name], err)
+    # K5-K7 at the verify shapes ride on their kernels-line entries
+    i8_t["int8_wdot"]["verify"] = {k: v for k, v in spec_t.items()
+                                   if k.startswith("int8_wdot")}
+    for name in ("decode_attention_int8", "kv_quantize"):
+        i8_t[name]["verify"] = spec_t[name]
     emit({"phase": "kernels_checked", "elapsed_s":
           time.perf_counter() - t_start})
 
@@ -3390,6 +3874,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_int8()
     emit({"phase": "served_int8", "elapsed_s": time.perf_counter() - t_start})
+    spec_launches = serve_spec(torch, np, fa)
+    torch.cuda.empty_cache()
+    cli_spec()
+    emit({"phase": "served_spec", "elapsed_s": time.perf_counter() - t_start})
     train_launches = train(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
@@ -3435,6 +3923,7 @@ def main() -> int:
                   for name, line in INT8_REPLACES.items()}}
     by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
                       "serve_int8": int8_launches.get(name, 0),
+                      "serve_spec": spec_launches.get(name, 0),
                       "train": train_launches.get(name, 0),
                       "ps_round": round_launches.get(name, 0),
                       "ps_device_round": device_launches.get(name, 0),
@@ -3456,13 +3945,15 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
-        if "lanes" in t:
-            entry["lanes"] = t["lanes"]
+        for key in ("lanes", "verify"):
+            if key in t:
+                entry[key] = t[key]
         kernels.append(entry)
     # the device close's kernels run on the device-close paths only, the
-    # int8 serving kernels on serve_int8 only
-    if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and
-                                  k["launches_by_path"]["serve_int8"] <= 0)
+    # int8 serving kernels on serve_int8 and serve_spec only
+    if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and min(
+            k["launches_by_path"][path]
+            for path in ("serve_int8", "serve_spec")) <= 0)
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            for k in kernels):

@@ -12,6 +12,12 @@
                              # only their suffix (PSDT_PREFIX_CACHE_BYTES)
         [--fused-rounds=N]   # up to N decode rounds per host decision
                              # when no request waits (token-exact)
+        [--draft-model=tiny_lm [--draft-ckpt=path.ckpt \\
+         [--draft-lora-alpha=A]] [--draft-seed=S] [--draft-len=4] \\
+         [--no-adaptive-draft] [--draft-cost-ratio=R]]
+                             # speculative serving: --draft-len is the
+                             # depth cap, adapted from the accept rate
+                             # unless --no-adaptive-draft pins it
 
 Weights come from ``--ckpt`` (the host checkpoint format the PS writes;
 a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
@@ -19,7 +25,10 @@ a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
 ``--kv-cache=int8`` the slot cache.  The model runs on the CUDA card
 unless ``--device=cpu`` asks for the CPU; with no card and no such
 request it exits with an error.  ``PSDT_FLASH_ATTENTION=1`` routes
-prefill attention through the flash kernel.
+prefill attention through the flash kernel.  With ``--draft-model``
+each decode round is a speculative round (greedy or plain
+``--temperature``; a request may get several tokens a round, each
+streamed as its own line).
 
 Line protocol (JSONL on stdin/stdout), as the reference's pst-serve:
 
@@ -48,10 +57,11 @@ KNOWN_FLAGS = frozenset({
     "model", "dtype", "seed", "slots", "max-len", "temperature", "top-k",
     "top-p", "eos", "default-max-new", "device", "help", "ckpt",
     "lora-alpha", "quant", "kv-cache", "prompt-cache", "fused-rounds",
-    "scan-layers", "no-scan-layers",
+    "scan-layers", "no-scan-layers", "draft-model", "draft-ckpt",
+    "draft-seed", "draft-len", "no-adaptive-draft", "draft-cost-ratio",
+    "draft-lora-alpha",
 })
 
-_SERVING_REST = "ROADMAP.md Queue 1, item 6 (serving, the rest)"
 # the reference's other pst-serve flags, and where each is planned
 UNPORTED_FLAGS = {
     **dict.fromkeys(("ckpt-dir", "avg-last"),
@@ -59,16 +69,13 @@ UNPORTED_FLAGS = {
                     "train_loop: checkpoint/sharded.py)"),
     "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, item 7, other model "
                "families: hf.py)",
-    **dict.fromkeys(("draft-model", "draft-ckpt", "draft-seed", "draft-len",
-                     "no-adaptive-draft", "draft-cost-ratio",
-                     "draft-lora-alpha"),
-                    f"speculative decoding ({_SERVING_REST})"),
     **dict.fromkeys(("follow", "subscriber-id"),
-                    f"live weight publication ({_SERVING_REST}: "
-                    f"fleet/decode.py, swap_params)"),
+                    "live weight publication (ROADMAP.md Queue 1, item "
+                    "12: delta/subscriber.py, swap_params)"),
     **dict.fromkeys(("serve-port", "coordinator", "server-id"),
-                    f"decode fleet mode ({_SERVING_REST}: fleet/decode.py "
-                    f"and the coordinator's fleet registry)"),
+                    "decode fleet mode (ROADMAP.md Queue 1, item 6c: "
+                    "fleet/decode.py and the coordinator's fleet "
+                    "registry)"),
 }
 
 
@@ -134,6 +141,23 @@ def main(argv: list[str] | None = None) -> int:
         source += " (int8 weights)"
     print(f"serving: {flags.get('model', 'small_lm')} {source} on {device}",
           file=sys.stderr)
+    spec_kwargs: dict = {}
+    if flags.get("draft-model"):
+        # speculative continuous batching, greedy or plain --temperature
+        # (DecodeServer refuses top-k/top-p)
+        draft, dparams, dsource = generate_main.build_draft(flags, seed,
+                                                            device)
+        if flags.get("quant"):
+            dparams = quantize_params(dparams)
+            dsource += " (int8 weights)"
+        print(f"draft: {dsource}", file=sys.stderr)
+        spec_kwargs = dict(
+            draft=draft, draft_params=dparams,
+            draft_len=int(flags.get("draft-len", "4")),
+            # adaptive depth by default (--draft-len is the cap)
+            adaptive_draft="no-adaptive-draft" not in flags,
+            draft_cost_ratio=generate_main.draft_cost_ratio(flags, draft,
+                                                            model))
     tokenizer = ByteTokenizer()
     eos = int(flags["eos"]) if flags.get("eos") else None
     srv = DecodeServer(
@@ -145,7 +169,7 @@ def main(argv: list[str] | None = None) -> int:
         top_p=float(flags.get("top-p", "0.0")),
         eos_id=eos, seed=seed, device=device,
         cache_dtype="int8" if flags.get("kv-cache") else "native",
-        prompt_cache=int(flags.get("prompt-cache", "0")))
+        prompt_cache=int(flags.get("prompt-cache", "0")), **spec_kwargs)
     default_max_new = int(flags.get("default-max-new", "64"))
     fused_rounds = int(flags.get("fused-rounds", "1"))
 
@@ -253,6 +277,9 @@ def main(argv: list[str] | None = None) -> int:
         emitted = (srv.step_many(fused_rounds)
                    if fused_rounds > 1 and not pending else srv.step())
         done_now = set(srv.finished())
+        # stream every token before retiring finished requests: a
+        # speculative round can emit several tokens for one request, and
+        # its finishing token need not be its last pair
         for rid, token in emitted:
             _emit({"id": live[rid].get("id"), "token": int(token)})
         for rid in done_now & set(live):

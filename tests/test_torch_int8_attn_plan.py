@@ -179,3 +179,17 @@ def test_the_serving_shapes_plans(plan_lib):
     assert 2 * (extend["smem"] + 1024) <= smem_max
     long, _ = _plan(plan_lib, 1, 4, 64, 57344)
     assert (long["rounds"], long["hold"], long["tiles"]) == (28, 1, 1)
+
+
+@pytest.mark.parametrize("g,max_len", [(4, 2048), (2, 512), (1, 300)])
+@pytest.mark.parametrize("t", [2, 3, 4, 5])
+def test_verify_blocks_plan(plan_lib, g, max_len, t):
+    """A speculative verify block (T = k + 1 queries a row at k 1..4, D
+    64: llama_350m's G 4 at 2048 positions, a 2-layer model's G 2 at 512,
+    G 1): every visible position of every first limit falls to one block
+    of its cluster, and the T queries share one tile, so each query's
+    chunk sums run as a single query's do."""
+    assert plan_lib.attn_plan_faults(t, g, 64, max_len, 1, 1) == 0
+    plan, smem_max = _plan(plan_lib, t, g, 64, max_len)
+    assert plan["tiles"] == 1 and plan["tile"] >= t
+    assert plan["rounds"] == 1 and 0 < plan["smem"] <= smem_max

@@ -85,27 +85,52 @@ def test_serve_main_int8_prompt_cache_and_fused_rounds(ckpt, monkeypatch,
     assert stats["prefix_cache_nodes"] == 3 and stats["steps"] == 20
 
 
-@pytest.mark.parametrize("flag,needle", [
-    ("--ckpt-dir=/x", "item 8"), ("--avg-last=2", "item 8"),
-    ("--hf-gpt2=gpt2", "item 7"), ("--draft-model=tiny_lm", "speculative"),
-    ("--follow=127.0.0.1:1", "swap_params"),
-    ("--serve-port=50070", "fleet registry"),
-    ("--fused-rounds", "explicit value"), ("--lora-alpha", "explicit value"),
-    ("--quant=int4", "takes int8"), ("--kv-cache=fp8", "takes int8")])
-def test_serve_main_refusals(flag, needle):
-    with pytest.raises(SystemExit, match=needle):
-        serve_main.main(["--model=small_lm", "--device=cpu", flag])
+def _case(flags, error, needle, case_id=None):
+    """One refusal case; its id is "<flags>-<needle>" unless named."""
+    return pytest.param(flags, error, needle,
+                        id=case_id or f"{flags}-{needle}")
 
 
-@pytest.mark.parametrize("flag,needle", [
-    ("--beam=4", "beam search"), ("--length-penalty=0.6", "beam search"),
-    ("--draft-model=tiny_lm", "item 6"), ("--draft-len=2", "item 6"),
-    ("--ckpt-dir=/x", "item 8"), ("--avg-last=2", "item 8"),
-    ("--hf-gpt2=gpt2", "item 7"), ("--bogus=1", "unknown flag"),
-    ("--quant=int4", "takes int8")])
-def test_generate_main_refusals(flag, needle):
-    with pytest.raises(SystemExit, match=needle):
-        generate_main.main(["--model=small_lm", "--device=cpu", flag])
+# --draft-model, --beam, --length-penalty and --draft-len are ported:
+# their cases now hold the reference's own checks of those options (each
+# keeps its case's id); the flags still unported refuse naming their item
+@pytest.mark.parametrize("flags,error,needle", [
+    _case("--ckpt-dir=/x", SystemExit, "item 8"),
+    _case("--avg-last=2", SystemExit, "item 8"),
+    _case("--hf-gpt2=gpt2", SystemExit, "item 7"),
+    _case("--draft-model=mnist_mlp", ValueError, "is not an LM",
+          "--draft-model=tiny_lm-speculative"),
+    _case("--follow=127.0.0.1:1", SystemExit, "item 12: .*swap_params",
+          "--follow=127.0.0.1:1-swap_params"),
+    _case("--serve-port=50070", SystemExit, "item 6c: .*fleet registry",
+          "--serve-port=50070-fleet registry"),
+    _case("--fused-rounds", SystemExit, "explicit value"),
+    _case("--lora-alpha", SystemExit, "explicit value"),
+    _case("--quant=int4", SystemExit, "takes int8"),
+    _case("--kv-cache=fp8", SystemExit, "takes int8")])
+def test_serve_main_refusals(flags, error, needle):
+    with pytest.raises(error, match=needle):
+        serve_main.main(["--model=small_lm", "--device=cpu", *flags.split()])
+
+
+@pytest.mark.parametrize("flags,error,needle", [
+    _case("--beam=4 --draft-model=tiny_lm", ValueError, "does not combine",
+          "--beam=4-beam search"),
+    _case("--length-penalty=0.6", ValueError, "applies to beam search",
+          "--length-penalty=0.6-beam search"),
+    _case("--draft-model=mnist_mlp", ValueError, "is not an LM",
+          "--draft-model=tiny_lm-item 6"),
+    _case("--draft-model=tiny_lm --draft-len=0", ValueError,
+          "draft_len must be >= 1", "--draft-len=2-item 6"),
+    _case("--ckpt-dir=/x", SystemExit, "item 8"),
+    _case("--avg-last=2", SystemExit, "item 8"),
+    _case("--hf-gpt2=gpt2", SystemExit, "item 7"),
+    _case("--bogus=1", SystemExit, "unknown flag"),
+    _case("--quant=int4", SystemExit, "takes int8")])
+def test_generate_main_refusals(flags, error, needle):
+    with pytest.raises(error, match=needle):
+        generate_main.main(["--model=small_lm", "--device=cpu",
+                            *flags.split()])
 
 
 def test_generate_main_text_prompt(capsys):

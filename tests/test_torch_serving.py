@@ -136,10 +136,16 @@ def test_stats_and_unported_options(pair):
     assert srv.stats == {"steps": 2, "tokens_emitted": 2,
                          "requests_admitted": 1, "requests_completed": 1,
                          "prefill_tokens": 3, "prompt_tokens": 3}
-    for kw in (dict(draft=pm), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.DecodeServer(pm, params, slots=1, max_len=16, device="cpu",
-                            **kw)
+    # a mesh is not ported; a draft is, and the reference's own check on
+    # it holds: its vocab must be the target's
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.DecodeServer(pm, params, slots=1, max_len=16, device="cpu",
+                        mesh=object())
+    other = tt.Transformer(dataclasses.replace(pm.config, vocab=64))
+    with pytest.raises(ValueError, match="vocab mismatch"):
+        ts.DecodeServer(pm, params, slots=1, max_len=16, device="cpu",
+                        draft=other,
+                        draft_params=other.init_params(0, device="cpu"))
     # the int8 cache and the prompt cache are ported
     # (tests/test_torch_prefix_serving.py holds them against the JAX
     # server); the prompt cache adds its keys to the stats
@@ -172,14 +178,19 @@ def test_serve_main_jsonl_on_cpu(monkeypatch, capsys):
     assert any("error" in line and "id" not in line for line in lines)
 
 
-@pytest.mark.parametrize("flag,needle", [("--draft-model=tiny_lm",
-                                          "speculative"),
-                                         ("--follow=127.0.0.1:1",
-                                          "not ported"),
-                                         ("--bogus=1", "unknown flag")])
-def test_serve_main_rejects_flags(flag, needle):
-    with pytest.raises(SystemExit, match=needle):
-        serve_main.main(["--model=small_lm", "--device=cpu", flag])
+@pytest.mark.parametrize("flags,error,needle", [
+    # --draft-model is ported: the case now holds the reference's check
+    # of --draft-len (the id keeps the case's name)
+    pytest.param("--draft-model=tiny_lm --draft-len=0", ValueError,
+                 "draft_len must be >= 1",
+                 id="--draft-model=tiny_lm-speculative"),
+    pytest.param("--follow=127.0.0.1:1", SystemExit, "not ported",
+                 id="--follow=127.0.0.1:1-not ported"),
+    pytest.param("--bogus=1", SystemExit, "unknown flag",
+                 id="--bogus=1-unknown flag")])
+def test_serve_main_rejects_flags(flags, error, needle):
+    with pytest.raises(error, match=needle):
+        serve_main.main(["--model=small_lm", "--device=cpu", *flags.split()])
 
 
 @pytest.mark.parametrize("argv", [
