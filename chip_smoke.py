@@ -33,6 +33,18 @@ two paths of the port:
   model's speculative streams token-exact against generate (both cache
   dtypes, the prefix cache) and beam width 1 equal to greedy; serve_main
   --draft-model and generate_main --beam as processes;
+- the decode fleet: fleet_wire runs cli.coordinator_main, two
+  cli.serve_main processes in fleet mode (llama_350m bf16, the prefix
+  cache) and cli.route_main on the card, this process the client
+  through the router: a shared prefix's 8 extensions all on its
+  holder, a 16-stream burst on two servers, ctl_main fleet-drain 1
+  mid-burst (server 1 finishes, shows GONE, exits 0), the burst again on
+  the fleet of one, each server's flash launches from its exit report;
+  fleet_update runs two in-process FleetDecodeServers (int8 weights and
+  cache, quantize_params as their transform) behind a Coordinator and
+  FleetRouter: a rolling update mid-burst (version stamps 0...0 1...1,
+  no stream dropped), a rollback pin, a drifted store refused, K5-K7
+  launches exact, a 2-layer f32 fleet token-exact against generate;
 - training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
   flash attention, weights from a seed) taking 5 Trainer.compute_gradients
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
@@ -2023,6 +2035,758 @@ def cli_spec() -> None:
         fail(f"generate_main --beam=4 exited {gen.returncode}: {g_out!r}")
 
 
+# the decode fleet phases: new tokens of the burst streams, of the
+# drained burst (long enough that a drain lands mid-stream) and of the
+# mid-burst rolling update's streams; the router's table poll; the
+# fingerprint cap of the fleet processes (the default 64 hashes hold only
+# the first cached paths, and the warm-up and uniform arms cache longer
+# prompts than the shared prefix); wall-clock limits
+FLEET_DRAIN_NEW = 128
+FLEET_UPDATE_NEW = 96
+FLEET_POLL_S = 0.1
+FLEET_FP_MAX = 1024
+FLEET_FP_DEFAULT = 64      # models.prefix_tree.fp_max's default
+FLEET_LIMIT_S = 360.0
+
+
+class Burst:
+    """Every prompt sent at once to ``address``'s ``SubmitStream`` (a
+    router or one decode server), a thread a stream; a stream's TTFT is
+    from the burst's start to its first chunk on the host."""
+
+    def __init__(self, address: str, prompts: list, max_new: int):
+        from parameter_server_distributed_tpu_torch.fleet import \
+            messages as fmsg
+        from parameter_server_distributed_tpu_torch.rpc.service import \
+            RpcClient
+
+        self._fmsg = fmsg
+        self._client = RpcClient(address, fmsg.DECODE_SERVICE,
+                                 fmsg.DECODE_METHODS)
+        self.prompts = prompts
+        self.max_new = max_new
+        self.results: list = [None] * len(prompts)
+        self._first = threading.Semaphore(0)
+        self._threads: list = []
+        self.t0 = 0.0
+
+    def _one(self, i: int) -> None:
+        import grpc
+
+        tokens, versions, first, error = [], [], None, "no done chunk"
+        try:
+            for chunk in self._client.call(
+                    "SubmitStream", self._fmsg.DecodeRequest(
+                        tokens=self.prompts[i], max_new=self.max_new,
+                        temperature=-1.0), timeout=600.0):
+                if first is None:
+                    first = time.perf_counter()
+                    self._first.release()
+                if chunk.done:
+                    error = chunk.error
+                    break
+                tokens.append(int(chunk.token))
+                versions.append(int(chunk.weight_version))
+        except grpc.RpcError as exc:
+            error = f"rpc error {exc.code()}"
+        finally:
+            if first is None:
+                self._first.release()
+        self.results[i] = {"tokens": tokens, "versions": versions,
+                           "error": error,
+                           "ttft_s": (first or time.perf_counter()) - self.t0,
+                           "done_s": time.perf_counter() - self.t0}
+
+    def start(self) -> "Burst":
+        self.t0 = time.perf_counter()
+        self._threads = [threading.Thread(target=self._one, args=(i,),
+                                          daemon=True)
+                         for i in range(len(self.prompts))]
+        for thread in self._threads:
+            thread.start()
+        return self
+
+    def wait_first(self, timeout: float = 300.0) -> None:
+        """Until every stream has its first chunk (or ended)."""
+        deadline = time.monotonic() + timeout
+        for _ in self.prompts:
+            if not self._first.acquire(
+                    timeout=max(0.0, deadline - time.monotonic())):
+                fail("a fleet stream got no first chunk in time")
+
+    def join(self, timeout: float = 600.0) -> dict:
+        """Wait for every stream; the burst's summary (fails on a stream
+        that did not end)."""
+        deadline = time.monotonic() + timeout
+        for thread in self._threads:
+            thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        self._client.close()
+        if any(t.is_alive() for t in self._threads):
+            fail("a fleet stream outlived its burst's limit")
+        wall = max(r["done_s"] for r in self.results)
+        ttft = [r["ttft_s"] for r in self.results]
+        n_tokens = sum(len(r["tokens"]) for r in self.results)
+        return {"streams": len(self.results), "wall_s": wall,
+                "ttft_p50_s": _pct(ttft, 50), "ttft_p99_s": _pct(ttft, 99),
+                "streams_per_s": len(self.results) / wall,
+                "tokens_per_s": n_tokens / wall, "tokens": n_tokens,
+                "errors": [r["error"] for r in self.results if r["error"]],
+                "short": sum(len(r["tokens"]) != self.max_new
+                             for r in self.results)}
+
+    def run(self) -> dict:
+        return self.start().join()
+
+
+def _pct(values: list, q: float) -> float:
+    import numpy as np
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def fleet_rows(caddr: str) -> list:
+    """The coordinator's fleet table through ctl_main's UpdateFleet
+    query."""
+    from parameter_server_distributed_tpu_torch.cli import ctl_main
+    from parameter_server_distributed_tpu_torch.fleet import \
+        messages as fmsg
+
+    resp = ctl_main._fleet_call(caddr, fmsg.FleetRequest(
+        server_id=-1, action=fmsg.FLEET_QUERY))
+    if resp is None:
+        fail("the coordinator does not answer UpdateFleet")
+    return list(resp.entries)
+
+
+def decode_status(address: str):
+    """A decode server's Control STATUS."""
+    from parameter_server_distributed_tpu_torch.fleet import \
+        messages as fmsg
+    from parameter_server_distributed_tpu_torch.rpc.service import RpcClient
+
+    client = RpcClient(address, fmsg.DECODE_SERVICE, fmsg.DECODE_METHODS)
+    try:
+        return client.call("Control", fmsg.DecodeControlRequest(
+            action=fmsg.CTRL_STATUS), timeout=30.0)
+    finally:
+        client.close()
+
+
+def wait_until(cond, deadline: float, what: str) -> None:
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.05)
+    fail(f"timed out waiting for {what}")
+
+
+def settle(caddr: str, raddr: str, deadline: float) -> None:
+    """Wait until the fleet table shows every ACTIVE server idle (its
+    heartbeat caught up with the last burst), then refresh the router's
+    table with a status probe: a burst arrives at a fleet at rest.  A
+    burst routed on a table older than a heartbeat places by stale free
+    slots (on the card, 11 of 16 streams once landed on one server)."""
+    def idle() -> bool:
+        rows = [e for e in fleet_rows(caddr)
+                if int(e.state) == 1]          # MEMBER_ACTIVE
+        return all(int(e.free_slots) == int(e.slots)
+                   and int(e.queue_depth) == 0
+                   and int(e.active_streams) == 0 for e in rows)
+
+    wait_until(idle, deadline, "the fleet's heartbeats to show it idle")
+    decode_status(raddr)
+
+
+def placement_at_cap(rows: list, prompts: list, cap: int) -> dict:
+    """Where the router's score puts ``prompts`` sent at once (one table,
+    its claims debited stream by stream) had each server's fingerprint
+    held only its first ``cap`` hashes, the default cap's fingerprint
+    being the first hashes of a larger cap's: computed from the table
+    ``rows``, not routed.  {"landed": {server: streams}, "overlap":
+    blocks of the first prompt each server advertises}."""
+    import types
+
+    from parameter_server_distributed_tpu_torch.models.prefix_tree import (
+        block_hashes, overlap_blocks, unpack_fp)
+    from parameter_server_distributed_tpu_torch.fleet.router import \
+        score_backends
+
+    table = [types.SimpleNamespace(
+        server_id=int(e.server_id), state=int(e.state),
+        free_slots=int(e.free_slots), queue_depth=int(e.queue_depth),
+        prefix_fp=bytes(e.prefix_fp)[:4 * cap]) for e in rows]
+    claims: dict = {}
+    landed = {e.server_id: 0 for e in table}
+    for p in prompts:
+        ranked = score_backends(table, claims, block_hashes(p), 1.0)
+        sid = ranked[0].server_id
+        claims[sid] = claims.get(sid, 0) + 1
+        landed[sid] += 1
+    first = block_hashes(prompts[0])
+    return {"landed": landed,
+            "overlap": {e.server_id: overlap_blocks(
+                first, unpack_fp(e.prefix_fp)) for e in table}}
+
+
+def bucket_warmup(vocab: int, rng) -> list:
+    """One prompt a prefill bucket of PROMPT_LENS (each 2 short of it)."""
+    return [rng.integers(0, vocab, n - 2).tolist()
+            for n in sorted({min(1 << max(4, (n - 1).bit_length()), 2048)
+                             for n in PROMPT_LENS})]
+
+
+def fleet_wire(np, rng) -> dict:
+    """The decode fleet as its users run it, all processes on the one
+    card: cli.coordinator_main, two cli.serve_main in fleet mode
+    (llama_350m bf16, flash prefill, 8 slots x 2048, the prefix cache,
+    --serve-port=0, --server-id 0 and 1) and cli.route_main; this
+    process is the client, every stream through the router.  After a
+    warm-up of each server's prefill buckets: the shared-prefix arm (one
+    warm stream of a 1024-token prefix, a wait until its holder's
+    heartbeat carries the prefix's fingerprint, then its 8 extensions at
+    once, which must all land on the holder and forward far fewer tokens
+    than they hold; beside it the same lengths without a shared prefix
+    sent straight to the other server, and the placement the router's
+    score gives from the same table at the default fingerprint cap,
+    computed and printed), the uniform arm (serve's 8 prompt lengths
+    twice over, 16 at once, each arm sent to a fleet at rest; then once
+    more at once without waiting, its placement printed, not held),
+    then a burst of 8 long
+    streams with ``ctl_main fleet-drain 1`` sent mid-burst (server 1
+    finishes its in-flight streams, shows GONE and exits 0 by itself),
+    then the uniform arm again against the fleet of one.  SIGTERM ends
+    the rest; every process must exit 0.  Each server's flash launches
+    (its exit report) must be 24 a full prefill its stats give.
+    Returns the path's launches."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fleet_wire-",
+                           dir=os.path.join(HERE, "build"))
+    env = child_env(tmp, PSDT_FLASH_ATTENTION="1",
+                    PSDT_PREFIX_FP_MAX=str(FLEET_FP_MAX))
+    try:
+        return _fleet_wire_in(tmp, _spawner(tmp, env), np, rng)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
+    import signal
+
+    from parameter_server_distributed_tpu_torch.fleet import \
+        messages as fmsg
+    from parameter_server_distributed_tpu_torch.models.prefix_tree import (
+        block_hashes, fp_block, overlap_blocks, unpack_fp)
+
+    layers, vocab = LLAMA["layers"], 32000
+    deadline = time.monotonic() + FLEET_LIMIT_S
+    out: dict = {}
+    try:
+        coord, coord_log = spawn("coordinator_main", "127.0.0.1:0")
+        caddr = "127.0.0.1:" + _wait_line(
+            coord_log, r"Coordinator server listening on [\d.]+:(\d+)",
+            coord, deadline)
+        servers = [spawn("serve_main", "--model=llama_350m", "--slots=8",
+                         "--max-len=2048", "--prompt-cache=16",
+                         "--serve-port=0", f"--coordinator={caddr}",
+                         f"--server-id={sid}",
+                         f"--report={tmp}/serve{sid}.json")
+                   for sid in (0, 1)]
+        router, router_log = spawn("route_main", f"--coordinator={caddr}",
+                                   f"--poll-s={FLEET_POLL_S}",
+                                   f"--report={tmp}/route.json")
+        raddr = "127.0.0.1:" + _wait_line(
+            router_log, r"fleet router on port (\d+)", router, deadline)
+        t_up = time.perf_counter()
+        for proc, log in servers:
+            _wait_line(log, r"decode fleet server \d on port (\d+)", proc,
+                       deadline)
+        wait_until(lambda: sum(int(e.state) == fmsg.MEMBER_ACTIVE
+                               for e in fleet_rows(caddr)) == 2,
+                   deadline, "both decode servers ACTIVE")
+        address = {int(e.server_id): e.address for e in fleet_rows(caddr)}
+        for sid in (0, 1):
+            for p in bucket_warmup(vocab, rng):
+                Burst(address[sid], [p], 2).run()
+        out["startup_s"] = time.perf_counter() - t_up
+
+        # the shared-prefix arm
+        prefix = rng.integers(0, vocab, PREFIX_LEN).tolist()
+        exts = [prefix + rng.integers(0, vocab, n).tolist()
+                for n in PREFIX_SUFFIXES]
+        served = {sid: decode_status(address[sid]).streams_served
+                  for sid in (0, 1)}
+        warm = Burst(raddr, [prefix], 4).run()
+        holder = next(sid for sid in (0, 1)
+                      if decode_status(address[sid]).streams_served
+                      > served[sid])
+        other = 1 - holder
+        want = PREFIX_LEN // fp_block()
+        hashes = block_hashes(exts[0])
+        t_fp = time.perf_counter()
+        wait_until(lambda: any(
+            int(e.server_id) == holder
+            and overlap_blocks(hashes, unpack_fp(bytes(e.prefix_fp)))
+            >= want for e in fleet_rows(caddr)), deadline,
+            "the holder's heartbeat to carry the prefix")
+        fp_wait = time.perf_counter() - t_fp
+        ctl = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE}.cli.ctl_main", "fleet",
+             caddr], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=60)
+        if ctl.returncode != 0 or "2 servers" not in ctl.stdout:
+            fail(f"ctl_main fleet exited {ctl.returncode}: {ctl.stdout} "
+                 f"{ctl.stderr[-500:]}")
+        # the router polls the table when an admission finds it older
+        # than its poll period, and admissions that arrive during that
+        # poll route on the old table: settle() refreshes it first
+        settle(caddr, raddr, deadline)
+        rows = fleet_rows(caddr)
+        at_cap = {cap: placement_at_cap(rows, exts, cap)
+                  for cap in (FLEET_FP_MAX, FLEET_FP_DEFAULT)}
+        before = {sid: decode_status(address[sid]) for sid in (0, 1)}
+        arm = Burst(raddr, exts, 8).run()
+        after = {sid: decode_status(address[sid]) for sid in (0, 1)}
+        landed = {sid: after[sid].streams_served
+                  - before[sid].streams_served for sid in (0, 1)}
+        h0, h1 = before[holder], after[holder]
+        ratio = ((h1.prefill_tokens - h0.prefill_tokens)
+                 / max(1, h1.prompt_tokens - h0.prompt_tokens))
+        base = Burst(address[other],
+                     [rng.integers(0, vocab, len(p)).tolist()
+                      for p in exts], 8).run()
+        out["prefix"] = {"holder": holder, "landed": landed,
+                         "prefill_over_prompt": ratio,
+                         "fingerprint_wait_s": fp_wait,
+                         "warm_stream": warm, "extensions": arm,
+                         "no_shared_prefix": base,
+                         "computed_placement": {
+                             f"fp_max_{cap}": v for cap, v in at_cap.items()},
+                         "ctl_fleet": ctl.stdout}
+        if landed[holder] != 8 or landed[other] != 0 or ratio >= 0.5 \
+                or arm["errors"] or arm["short"]:
+            fail(f"the shared-prefix arm: landed {landed} (holder "
+                 f"{holder}), prefill/prompt {ratio}, {arm['errors']}")
+
+        # the uniform arm on two servers
+        prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+        settle(caddr, raddr, deadline)
+        served = {sid: decode_status(address[sid]).streams_served
+                  for sid in (0, 1)}
+        out["uniform_2"] = Burst(raddr, prompts * 2, NEW_TOKENS).run()
+        out["uniform_2"]["landed"] = {
+            sid: decode_status(address[sid]).streams_served - served[sid]
+            for sid in (0, 1)}
+        # the same lengths again at once, the fleet not settled: the
+        # router places by heartbeats from the last burst (printed, not
+        # held: the limits above are measured at rest)
+        served = {sid: decode_status(address[sid]).streams_served
+                  for sid in (0, 1)}
+        prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+        out["uniform_2_unsettled"] = Burst(raddr, prompts * 2,
+                                           NEW_TOKENS).run()
+        out["uniform_2_unsettled"]["landed"] = {
+            sid: decode_status(address[sid]).streams_served - served[sid]
+            for sid in (0, 1)}
+
+        # a long burst, server 1 drained mid-burst
+        drain_prompts = [rng.integers(0, vocab, n).tolist()
+                         for n in PROMPT_LENS]
+        settle(caddr, raddr, deadline)
+        burst = Burst(raddr, drain_prompts, FLEET_DRAIN_NEW).start()
+        burst.wait_first()
+        st = decode_status(address[1])
+        in_flight = st.slots - st.free_slots
+        drain = subprocess.run(
+            [sys.executable, "-m", f"{PACKAGE}.cli.ctl_main",
+             "fleet-drain", "1", caddr], cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+            text=True, timeout=60)
+        drained = burst.join()
+        proc1 = servers[1][0]
+        try:
+            rc1 = proc1.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc1 = "still running"
+        states = {int(e.server_id): fmsg.STATE_NAMES[int(e.state)]
+                  for e in fleet_rows(caddr)}
+        out["drain"] = {"in_flight_on_1": in_flight,
+                        "ctl_stdout": drain.stdout.strip(),
+                        "burst": drained, "server1_exit": rc1,
+                        "states": states}
+        if (drain.returncode != 0 or in_flight < 1 or drained["errors"]
+                or drained["short"] or rc1 != 0 or states[1] != "gone"):
+            fail(f"the drain: {out['drain']}")
+
+        # the uniform arm on the fleet of one
+        settle(caddr, raddr, deadline)
+        prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+        out["uniform_1"] = Burst(raddr, prompts * 2, NEW_TOKENS).run()
+        for name in ("uniform_2", "uniform_2_unsettled", "uniform_1"):
+            if out[name]["errors"] or out[name]["short"]:
+                fail(f"fleet_wire {name}: {out[name]}")
+
+        for proc, log in (servers[0], (router, router_log),
+                          (coord, coord_log)):
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=120.0)
+            except subprocess.TimeoutExpired:
+                rc = "hung at SIGTERM"
+            if rc != 0:
+                with open(log) as f:
+                    fail(f"{proc.args[2]} exited {rc}: {f.read()[-3000:]}")
+    finally:
+        for proc in spawn.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60.0)
+    reports = {}
+    for name in ("serve0", "serve1", "route"):
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            reports[name] = json.load(f)
+    launches, per_server = {}, {}
+    for sid in (0, 1):
+        r = reports[f"serve{sid}"]
+        stats = r["stats"]
+        full = (stats["requests_admitted"] - stats["prompt_cache_hits"]
+                - stats["prefix_hits"])
+        got = {k: v for k, v in r["launches"].items() if v}
+        per_server[sid] = {"streams_served": r["streams_served"],
+                           "full_prefills": full, "launches": got,
+                           "stats": stats,
+                           "peak_mem_gb": r["peak_mem_bytes"] / 1e9}
+        if got != {"flash_fwd": layers * full}:
+            fail(f"server {sid}'s launches {got} != {layers} x {full} full "
+                 f"prefills of flash_fwd")
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    routed = 1 + 8 + 16 + 16 + 8 + 16
+    route = reports["route"]
+    emit({"phase": "fleet_wire", "model": "llama_350m", "dtype": "bfloat16",
+          "servers": 2, "slots": 8, "max_len": 2048,
+          "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
+          **out, "servers_report": per_server,
+          "router": {"streams_routed": route["streams_routed"],
+                     "streams_rejected": route["streams_rejected"]}})
+    if (route["streams_routed"], route["streams_rejected"]) != (routed, 0):
+        fail(f"the router routed {route['streams_routed']} and rejected "
+             f"{route['streams_rejected']}: want {routed} and 0")
+    return launches
+
+
+def time_swap_parts(server, marks: list) -> None:
+    """Wrap a FleetDecodeServer's ``transform`` and its DecodeServer's
+    ``swap_params`` so that each swap appends its host-clock marks to
+    ``marks``: transform start and end, swap start and end (the swap
+    runs under the dispatch lock, the transform before it takes the
+    lock)."""
+    transform, swap = server._transform, server.server.swap_params
+
+    def timed_transform(store):
+        marks.append({"transform_start": time.perf_counter()})
+        try:
+            return transform(store)
+        finally:
+            marks[-1]["transform_end"] = time.perf_counter()
+
+    def timed_swap(params, **kwargs):
+        marks[-1]["swap_start"] = time.perf_counter()
+        try:
+            return swap(params, **kwargs)
+        finally:
+            marks[-1]["swap_end"] = time.perf_counter()
+
+    server._transform = timed_transform
+    server.server.swap_params = timed_swap
+
+
+def rollout_parts(marks: dict, t0: float, t1: float) -> dict:
+    """A rolling update's host time from ``t0`` to ``t1``, server by
+    server in swap order: the wait for the server's round boundary (from
+    the previous server's swap end), the transform, the wait for the
+    dispatch lock, the swap; then the controller's reply."""
+    firsts = sorted((mk[0] for mk in marks.values()
+                     if mk and len(mk[0]) == 4),
+                    key=lambda mk: mk["transform_start"])
+    sid_of = {id(mk[0]): sid for sid, mk in marks.items() if mk}
+    servers, prev = {}, t0
+    for mk in firsts:
+        servers[sid_of[id(mk)]] = {
+            "round_wait_s": mk["transform_start"] - prev,
+            "transform_s": mk["transform_end"] - mk["transform_start"],
+            "lock_wait_s": mk["swap_start"] - mk["transform_end"],
+            "swap_s": mk["swap_end"] - mk["swap_start"]}
+        prev = mk["swap_end"]
+    return {"servers": servers, "reply_s": t1 - prev}
+
+
+def fleet_update(torch, np, rng) -> dict:
+    """Rolling weight updates in process (versions published without a
+    training run): two FleetDecodeServers on llama_350m (bf16, int8
+    weights and KV cache, 8 slots x 2048) whose ``transform`` is
+    quantize_params, behind a port Coordinator and FleetRouter, with a
+    FleetController.  Mid-burst, version 1 (the seed-1 store) is
+    published and rolled out: no stream dropped, each stream's version
+    stamps 0...0 1...1.  rollback(0) pins: a version 2 published after
+    it serves no chunk and its rollout is refused.  A store with a
+    drifted shape is refused and the last-good weights serve a lone
+    stream token for token as before.  After version 1 is rolled out, a
+    lone stream equals a fresh int8 server's on the seed-1 store.  K5-K7
+    and flash launches over the two bursts must be the design's counts
+    for the prefills and rounds the servers' stats give.  Then a 2-layer
+    f32 model of llama_350m's widths through the same coordinator and
+    router: every stream token-exact against generate (int8 weights and
+    cache) before and after a rolling update.  Times of swap_params
+    (bf16; int8, the quantizing transform included) and of the rollout,
+    with its parts (rollout_parts).
+    Returns the path's launches."""
+    from parameter_server_distributed_tpu_torch.config import \
+        CoordinatorConfig
+    from parameter_server_distributed_tpu_torch.fleet import \
+        messages as fmsg
+    from parameter_server_distributed_tpu_torch.fleet.controller import \
+        FleetController
+    from parameter_server_distributed_tpu_torch.fleet.decode import \
+        FleetDecodeServer
+    from parameter_server_distributed_tpu_torch.fleet.router import \
+        FleetRouter
+    from parameter_server_distributed_tpu_torch.models import serving
+    from parameter_server_distributed_tpu_torch.models.generation import \
+        generate
+    from parameter_server_distributed_tpu_torch.models.quant import \
+        quantize_params
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.ops import \
+        flash_attention as fa
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+    from parameter_server_distributed_tpu_torch.server.coordinator_service \
+        import Coordinator
+
+    layers = LLAMA["layers"]
+    per_forward = 7 * layers + 1
+    model = get_model("llama_350m", dtype="bf16")
+    vocab = model.config.vocab
+    stores = {v: model.init_params(v, device="cuda") for v in (0, 1, 2)}
+    deadline = time.monotonic() + FLEET_LIMIT_S
+    out: dict = {}
+
+    def start_fleet(m, params, ids, max_len):
+        fleet = [FleetDecodeServer(
+            serving.DecodeServer(m, quantize_params(params), slots=8,
+                                 max_len=max_len, cache_dtype="int8",
+                                 device="cuda"),
+            server_id=sid, coordinator=caddr, transform=quantize_params,
+            heartbeat_s=0.1) for sid in ids]
+        for server in fleet:
+            server.start()
+        wait_until(lambda: sum(
+            int(f.state) == fmsg.MEMBER_ACTIVE and f.server_id in ids
+            for f in coordinator.core.fleet_table()[1]) == len(ids),
+            deadline, "the fleet servers ACTIVE")
+        return fleet
+
+    def retire(fleet):
+        for server in fleet:
+            coordinator.core.fleet_drain(server.server_id)
+        for server in fleet:
+            if not server.wait_drained(60.0):
+                fail(f"server {server.server_id} did not drain")
+            server.stop()
+
+    def lone(address, prompt, max_new=NEW_TOKENS):
+        r = Burst(address, [prompt], max_new)
+        r.run()
+        return r.results[0]
+
+    coordinator = Coordinator(CoordinatorConfig(bind_address="127.0.0.1",
+                                                port=0))
+    caddr = f"127.0.0.1:{coordinator.start()}"
+    router = FleetRouter(caddr, poll_s=FLEET_POLL_S)
+    raddr = f"127.0.0.1:{router.start()}"
+    controller = FleetController(coordinator.core)
+    fleet: list = []
+    try:
+        fleet = start_fleet(model, stores[0], (0, 1), 2048)
+        for server in fleet:
+            server.publish_version(stores[0], 0)
+            for p in bucket_warmup(vocab, rng):
+                lone(server.address, p, 2)
+        check = rng.integers(0, vocab, 300).tolist()
+        v0 = lone(fleet[0].address, check)
+        marks = {server.server_id: [] for server in fleet}
+        for server in fleet:
+            time_swap_parts(server, marks[server.server_id])
+
+        # burst 1: version 1 rolled out mid-burst (8 streams on 16
+        # slots: none waits for a slot, so each starts under version 0)
+        fa.reset_launches()
+        i8.reset_launches()
+        stats0 = [s.server.stats for s in fleet]
+        prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
+        burst = Burst(raddr, prompts, FLEET_UPDATE_NEW).start()
+        burst.wait_first()
+        for server in fleet:
+            server.publish_version(stores[1], 1)
+        t0 = time.perf_counter()
+        rolled = controller.rolling_update(1)
+        t1 = time.perf_counter()
+        rollout_s = t1 - t0
+        parts = rollout_parts(marks, t0, t1)
+        b1 = burst.join()
+        stamps = [r["versions"] for r in burst.results]
+        runs_0_then_1 = sum(v[0] == 0 and v[-1] == 1 and v == sorted(v)
+                            for v in stamps)
+        # rollback to 0 pins; version 2 is held and never served
+        pinned = controller.rollback(0)
+        for server in fleet:
+            server.publish_version(stores[2], 2)
+        after_pin = Burst(raddr, prompts, NEW_TOKENS)
+        b2 = after_pin.run()
+        pinned_versions = sorted({v for r in after_pin.results
+                                  for v in r["versions"]})
+        refused = controller.rolling_update(2)
+        stats1 = [s.server.stats for s in fleet]
+        launches = {**fa.launches, **i8.launches}
+        admitted = sum(b["requests_admitted"] - a["requests_admitted"]
+                       for a, b in zip(stats0, stats1))
+        rounds = sum(b["steps"] - a["steps"]
+                     for a, b in zip(stats0, stats1))
+        expected = {"flash_fwd": layers * admitted, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0,
+                    "int8_wdot": per_forward * (admitted + rounds),
+                    "decode_attention_int8": layers * rounds,
+                    "kv_quantize": admitted + layers * rounds}
+        # bf16 (int8 weights) streams of burst 2 against a lone server's
+        lone_equal = sum(
+            lone(fleet[0].address, p)["tokens"] == r["tokens"]
+            for p, r in zip(prompts, after_pin.results))
+        # a drifted store: refused, the last-good weights serve on
+        controller.unpin()
+        drifted = dict(stores[0])
+        drifted["embed/tok"] = drifted["embed/tok"][:-1]
+        fleet[0].publish_version(drifted, 3)
+        swap3 = fleet[0].Control(fmsg.DecodeControlRequest(
+            action=fmsg.CTRL_SWAP, version=3), None)
+        serving3 = fleet[0].weight_version()
+        kept = lone(fleet[0].address, check)
+        # version 1 again: a lone stream equals a fresh int8 server's
+        rolled_again = controller.rolling_update(1)
+        v1 = lone(fleet[0].address, check)
+        fresh = serving.DecodeServer(model, quantize_params(stores[1]),
+                                     slots=8, max_len=2048,
+                                     cache_dtype="int8", device="cuda")
+        rid = fresh.submit(check, max_new_tokens=NEW_TOKENS)
+        fresh_tokens = fresh.run_to_completion()[rid]
+        del fresh
+        out["bf16"] = {
+            "burst_update": b1, "rollout_s": rollout_s,
+            "rollout_parts": parts, "rolled": rolled,
+            "streams_0_then_1": runs_0_then_1,
+            "burst_pinned": b2, "pinned_versions": pinned_versions,
+            "rollback": pinned, "refused_after_pin": refused,
+            "streams_equal_lone": lone_equal,
+            "drift": {"success": swap3.success, "message": swap3.message,
+                      "serving": serving3,
+                      "lone_equal_before": kept["tokens"] == v0["tokens"]},
+            "v1_lone_equals_fresh": v1["tokens"] == fresh_tokens,
+            "v1_differs_from_v0": v1["tokens"] != v0["tokens"],
+            "launches": launches, "expected_launches": expected,
+            "stats": [s.server.stats for s in fleet]}
+        faults = []
+        if b1["errors"] or b1["short"] or runs_0_then_1 != len(stamps):
+            faults.append(f"burst 1: {b1['errors']}, short {b1['short']}, "
+                          f"{runs_0_then_1} of {len(stamps)} 0...1")
+        if not all(rolled.values()) or not all(pinned.values()) \
+                or any(refused.values()) or pinned_versions != [0] \
+                or b2["errors"] or b2["short"]:
+            faults.append(f"the pin: rolled {rolled}, rollback {pinned}, "
+                          f"v2 rollout {refused}, served "
+                          f"{pinned_versions}")
+        if swap3.success or "failed" not in swap3.message or serving3 != 0 \
+                or kept["tokens"] != v0["tokens"]:
+            faults.append(f"the drifted store: {out['bf16']['drift']}")
+        if not all(rolled_again.values()) or v1["tokens"] != fresh_tokens:
+            faults.append("version 1 does not serve the seed-1 int8 store")
+        if launches != expected:
+            faults.append(f"launches {launches} != {expected}")
+        if faults:
+            fail(f"fleet_update: {faults}")
+        retire(fleet)
+        fleet = []
+        torch.cuda.empty_cache()
+
+        # swap_params times: bf16, and int8 with its transform
+        bsrv = serving.DecodeServer(model, stores[0], slots=1, max_len=64,
+                                    device="cuda")
+        isrv = serving.DecodeServer(model, quantize_params(stores[0]),
+                                    slots=1, max_len=64, cache_dtype="int8",
+                                    device="cuda")
+        swap_ms = {"bf16": [], "int8_with_transform": []}
+        for i in range(4):
+            for name, srv in (("bf16", bsrv), ("int8_with_transform", isrv)):
+                store = stores[1 + i % 2]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.swap_params(quantize_params(store) if srv is isrv
+                                else store, version=i + 1)
+                torch.cuda.synchronize()
+                swap_ms[name].append((time.perf_counter() - t0) * 1e3)
+        out["swap_params_ms"] = swap_ms
+        del bsrv, isrv, stores
+        torch.cuda.empty_cache()
+
+        # f32: a 2-layer model of llama_350m's widths, token-exact
+        c = model.config
+        small = Transformer(TransformerConfig(
+            vocab=c.vocab, d_model=c.d_model, n_heads=c.n_heads,
+            n_kv_heads=c.n_kv_heads, n_layers=2, d_ff=c.d_ff,
+            max_seq=1024, mlp_act=c.mlp_act, dtype=torch.float32),
+            attention_fn=flash_attention_auto)
+        sstores = {v: small.init_params(v, device="cuda") for v in (0, 1)}
+        fleet = start_fleet(small, sstores[0], (2, 3), 1024)
+        time.sleep(FLEET_POLL_S)
+        decode_status(raddr)
+        exact = {}
+        sprompts = [rng.integers(0, c.vocab, n).tolist()
+                    for n in (64, 128, 256, 512) * 2]
+        for version in (0, 1):
+            if version:
+                for server in fleet:
+                    server.publish_version(sstores[1], 1)
+                if not all(controller.rolling_update(1).values()):
+                    fail("the f32 fleet refused version 1")
+            burst = Burst(raddr, sprompts, 8)
+            burst.run()
+            qparams = quantize_params(sstores[version])
+            exact[version] = [
+                r["tokens"] == generate(small, qparams, [p], 8,
+                                        cache_dtype="int8")[0].tolist()
+                and set(r["versions"]) == {version}
+                for p, r in zip(sprompts, burst.results)]
+        out["f32"] = {"model": "2-layer f32, llama_350m widths, int8 "
+                               "weights and cache", "token_exact": exact}
+        retire(fleet)
+        fleet = []
+        if not all(exact[0] + exact[1]):
+            fail(f"f32 fleet streams differ from generate: {exact}")
+    finally:
+        for server in fleet:
+            server.stop()
+        controller.close()
+        router.stop()
+        coordinator.stop()
+    emit({"phase": "fleet_update", "model": "llama_350m",
+          "dtype": "bfloat16, int8 weights and KV cache", "servers": 2,
+          "slots": 8, "max_len": 2048, "new_tokens": FLEET_UPDATE_NEW,
+          **out})
+    return launches
+
+
 def model_flops_per_step(model, batch: int, seq: int) -> float:
     """6*N*T over the matmul parameters (every 2-D weight but embed/tok)
     plus 6*B*H*D*S^2 per layer for causal attention; no remat recompute."""
@@ -3270,6 +4034,7 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process,
     from parameter_server_distributed_tpu_torch.models.transformer import \
         llama_350m
     from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
     from parameter_server_distributed_tpu_torch.ops import fused_update as fu
 
     b, s, lr = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"]
@@ -3341,7 +4106,8 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process,
                 "fused_sgd": 0, "fused_momentum": 0,
                 "fused_adam": 0 if device else
                 update_launches(fu, model.param_shapes()) * rounds,
-                **dict.fromkeys(da.launches, 0)}
+                **dict.fromkeys(da.launches, 0),
+                **dict.fromkeys(i8.launches, 0)}
     fold_pairs = None
     if device:
         # the bootstrap folds per tensor (a copy and an add each) and
@@ -3505,6 +4271,7 @@ def config1_wire(np) -> dict:
         partition_names
     from parameter_server_distributed_tpu_torch.models.mlp import mnist_mlp
     from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
     from parameter_server_distributed_tpu_torch.ops import fused_update as fu
 
     b, rounds, lr = CONFIG1["batch"], CONFIG1["rounds"], CONFIG1["lr"]
@@ -3543,7 +4310,8 @@ def config1_wire(np) -> dict:
                        "fused_adam": 0, "fused_sgd": 0 if opt_args
                        else per_apply * rounds,
                        **(device_launches if device
-                          else dict.fromkeys(da.launches, 0))}
+                          else dict.fromkeys(da.launches, 0)),
+                       **dict.fromkeys(i8.launches, 0)}
         tmp = tempfile.mkdtemp(prefix=f"config1-{leg}-",
                                dir=os.path.join(HERE, "build"))
         try:
@@ -3878,6 +4646,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_spec()
     emit({"phase": "served_spec", "elapsed_s": time.perf_counter() - t_start})
+    fleet_wire_launches = fleet_wire(np, rng)
+    fleet_update_launches = fleet_update(torch, np, rng)
+    torch.cuda.empty_cache()
+    emit({"phase": "fleet_done", "elapsed_s": time.perf_counter() - t_start})
     train_launches = train(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
@@ -3924,6 +4696,8 @@ def main() -> int:
     by_path = {name: {"serve": serve_fwd if name == "flash_fwd" else 0,
                       "serve_int8": int8_launches.get(name, 0),
                       "serve_spec": spec_launches.get(name, 0),
+                      "fleet_wire": fleet_wire_launches.get(name, 0),
+                      "fleet_update": fleet_update_launches.get(name, 0),
                       "train": train_launches.get(name, 0),
                       "ps_round": round_launches.get(name, 0),
                       "ps_device_round": device_launches.get(name, 0),
@@ -3950,10 +4724,14 @@ def main() -> int:
                 entry[key] = t[key]
         kernels.append(entry)
     # the device close's kernels run on the device-close paths only, the
-    # int8 serving kernels on serve_int8 and serve_spec only
+    # int8 serving kernels on serve_int8, serve_spec and fleet_update
+    # only; flash_fwd on both fleet paths
     if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and min(
             k["launches_by_path"][path]
-            for path in ("serve_int8", "serve_spec")) <= 0)
+            for path in ("serve_int8", "serve_spec", "fleet_update")) <= 0)
+           or (k["name"] == "flash_fwd" and min(
+               k["launches_by_path"][path]
+               for path in ("fleet_wire", "fleet_update")) <= 0)
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            for k in kernels):

@@ -18,6 +18,9 @@
                              # speculative serving: --draft-len is the
                              # depth cap, adapted from the accept rate
                              # unless --no-adaptive-draft pins it
+        [--serve-port=P [--coordinator=HOST:PORT] [--server-id=N]]
+                             # decode fleet mode (gRPC, below)
+        [--report=PATH]      # exit report (cli/exit_report.py)
 
 Weights come from ``--ckpt`` (the host checkpoint format the PS writes;
 a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
@@ -41,6 +44,17 @@ Line protocol (JSONL on stdin/stdout), as the reference's pst-serve:
 
 Requests are admitted the moment a slot frees; stdin close drains the
 in-flight work and exits.
+
+Decode fleet mode (``--serve-port`` or ``--coordinator``): the server
+speaks the ``psdt_fleet.Decode`` gRPC service (fleet/decode.py) instead
+of the line protocol, on ``--serve-port`` (0 asks for a free port; the
+port is printed as ``decode fleet server ID on port P``), and with
+``--coordinator`` registers as ``--server-id`` and heartbeats its load,
+so ``cli.route_main`` routes streams to it.  Published weight versions
+go through the same ``--quant`` transform as the boot weights.  SIGTERM
+drains: the in-flight streams finish, the server leaves the fleet and
+the process exits 0.  ``--report`` writes the kernel launch counts, the
+server's stats and the streams served at exit.
 """
 
 from __future__ import annotations
@@ -59,7 +73,8 @@ KNOWN_FLAGS = frozenset({
     "lora-alpha", "quant", "kv-cache", "prompt-cache", "fused-rounds",
     "scan-layers", "no-scan-layers", "draft-model", "draft-ckpt",
     "draft-seed", "draft-len", "no-adaptive-draft", "draft-cost-ratio",
-    "draft-lora-alpha",
+    "draft-lora-alpha", "serve-port", "coordinator", "server-id",
+    "report",
 })
 
 # the reference's other pst-serve flags, and where each is planned
@@ -71,11 +86,8 @@ UNPORTED_FLAGS = {
                "families: hf.py)",
     **dict.fromkeys(("follow", "subscriber-id"),
                     "live weight publication (ROADMAP.md Queue 1, item "
-                    "12: delta/subscriber.py, swap_params)"),
-    **dict.fromkeys(("serve-port", "coordinator", "server-id"),
-                    "decode fleet mode (ROADMAP.md Queue 1, item 6c: "
-                    "fleet/decode.py and the coordinator's fleet "
-                    "registry)"),
+                    "12: delta/subscriber.py, the feed into "
+                    "swap_params)"),
 }
 
 
@@ -123,6 +135,12 @@ def main(argv: list[str] | None = None) -> int:
     require_flag_value(argv, "--fused-rounds",
                        hint="decode rounds per host decision, e.g. "
                             "--fused-rounds=8")
+    # bare --serve-port parses as 1 and binds an arbitrary low port;
+    # bare --coordinator would register against nothing
+    require_flag_value(argv, "--serve-port", "--coordinator",
+                       "--server-id", "--report",
+                       hint="fleet mode, e.g. --serve-port=50070 "
+                            "--coordinator=10.0.0.5:50052 --server-id=0")
     generate_main.check_flags(argv, {k: v for k, v in flags.items()
                                      if k in generate_main.KNOWN_FLAGS})
 
@@ -173,6 +191,15 @@ def main(argv: list[str] | None = None) -> int:
     default_max_new = int(flags.get("default-max-new", "64"))
     fused_rounds = int(flags.get("fused-rounds", "1"))
 
+    def report(streams_served: int | None = None) -> None:
+        if flags.get("report"):
+            from .exit_report import write_exit_report
+            write_exit_report(flags["report"], "serve", stats=srv.stats,
+                              streams_served=streams_served)
+
+    if flags.get("serve-port") is not None or flags.get("coordinator"):
+        return _serve_fleet(srv, flags, quantize_params, report)
+
     in_q: "queue.Queue[tuple | None]" = queue.Queue()
     threading.Thread(target=_reader, args=(in_q,), daemon=True,
                      name="serve-stdin").start()
@@ -199,6 +226,7 @@ def main(argv: list[str] | None = None) -> int:
 
     def finish_run() -> int:
         print(f"serving stats: {json.dumps(srv.stats)}", file=sys.stderr)
+        report()
         return 0
 
     def admit() -> None:
@@ -285,6 +313,39 @@ def main(argv: list[str] | None = None) -> int:
         for rid in done_now & set(live):
             finish(live[rid], srv.result(rid), text_mode[rid])
             del live[rid], text_mode[rid]
+
+
+def _serve_fleet(srv, flags: dict, quantize_params, report) -> int:
+    """Decode fleet mode: serve ``srv`` over gRPC until SIGTERM (or
+    Ctrl-C) drains it; returns the exit code."""
+    import signal
+
+    from ..fleet.decode import FleetDecodeServer
+
+    fds = FleetDecodeServer(
+        srv, server_id=int(flags.get("server-id", "0")),
+        port=int(flags.get("serve-port", "0")),
+        coordinator=flags.get("coordinator") or None,
+        # boot weights and every published version quantize alike
+        transform=quantize_params if flags.get("quant") else None)
+    port = fds.start()
+    print(f"decode fleet server {fds.server_id} on port {port}"
+          + (f", registered with {flags['coordinator']}"
+             if flags.get("coordinator") else " (standalone)"),
+          file=sys.stderr, flush=True)
+    # SIGTERM drains: the in-flight streams finish, then the server
+    # leaves the fleet (the scale-in path)
+    signal.signal(signal.SIGTERM, lambda *_: fds.drain())
+    try:
+        while not fds.wait_drained(0.5):
+            pass
+    except KeyboardInterrupt:
+        fds.drain()
+        fds.wait_drained(10.0)
+    fds.stop()
+    print(f"serving stats: {json.dumps(srv.stats)}", file=sys.stderr)
+    report(fds.streams_served)
+    return 0
 
 
 if __name__ == "__main__":

@@ -9,9 +9,14 @@ stale-worker eviction and the PS address workers discover.  Its
 core a provider whose ``generation()`` moves whenever the live set does,
 so the barrier narrows at the next width read.
 
+The decode fleet's registry: a map server id -> :class:`FleetMember`
+under a fleet epoch bumped on every state change (JOINING, ACTIVE,
+DRAINING, GONE: the elastic membership states), the manual scale
+target, and the stale-server reap the coordinator's reaper runs.
+
 Not ported: the shard map, promotions and live resharding (ROADMAP.md
-Queue 1, item 13), the decode fleet registry (item 6), the tier topology
-(item 10) and the membership states with their drain (item 11).
+Queue 1, item 13), the tier topology (item 10) and the workers'
+membership states with their drain (item 11).
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import dataclasses
 import threading
 import time
 from typing import Callable
+
+from ..elastic import messages as emsg
+from ..obs import stats as obs_stats
 
 
 class WorkerStatus:
@@ -40,6 +48,26 @@ class WorkerRegistryEntry:
     last_heartbeat: float = 0.0
 
 
+@dataclasses.dataclass
+class FleetMember:
+    """One decode server of the serving fleet: identity, capacity, the
+    load signals the router scores on, and its state (the elastic
+    membership constants)."""
+    server_id: int
+    address: str
+    slots: int
+    free_slots: int = 0
+    queue_depth: int = 0
+    weight_version: int = 0
+    active_streams: int = 0
+    state: int = emsg.MEMBER_JOINING
+    epoch: int = 0            # fleet epoch at the last state change
+    last_heartbeat: float = 0.0
+    # radix prefix-cache fingerprint: packed block hashes the router
+    # scores prompt overlap against; empty = no cache
+    prefix_fp: bytes = b""
+
+
 class CoordinatorCore:
     def __init__(self, ps_address: str, ps_port: int,
                  time_fn: Callable[[], float] = time.monotonic):
@@ -51,6 +79,14 @@ class CoordinatorCore:
         # bumped whenever the live set changes (a new worker, a leave, an
         # eviction): the PS barrier-width cache invalidates on it
         self._registry_generation = 0
+        # the decode fleet: server id -> row, under an epoch bumped on
+        # every state change (heartbeats do not bump it: the router polls
+        # the table anyway); _fleet_target is the manual scale target,
+        # 0 = the autoscaler's watermarks decide
+        self._fleet: dict[int, FleetMember] = {}
+        self._fleet_epoch = 0
+        self._fleet_target = 0
+        self._obs_fleet_active = obs_stats.gauge("fleet.servers.active")
 
     def register_worker(self, worker_id: int, address: str, port: int,
                         hostname: str) -> int:
@@ -136,3 +172,112 @@ class CoordinatorCore:
             if evicted:
                 self._registry_generation += 1
             return evicted
+
+    # --------------------------------------------------------- decode fleet
+    def _fleet_transition_locked(self, member: FleetMember,
+                                 state: int) -> bool:
+        """Move ``member`` to ``state``, bumping the fleet epoch iff it
+        changed (the caller holds _lock)."""
+        if member.state == state:
+            return False
+        member.state = state
+        self._fleet_epoch += 1
+        member.epoch = self._fleet_epoch
+        self._obs_fleet_active.set(sum(
+            1 for m in self._fleet.values()
+            if m.state == emsg.MEMBER_ACTIVE))
+        return True
+
+    def fleet_register(self, server_id: int, address: str,
+                       slots: int) -> int:
+        """A decode server announces itself (or again after GONE):
+        straight to ACTIVE, since serving has no barrier to join.
+        Returns the fleet epoch."""
+        now = self._time()
+        with self._lock:
+            sid = int(server_id)
+            member = self._fleet.get(sid)
+            if member is None or member.state == emsg.MEMBER_GONE:
+                member = FleetMember(server_id=sid, address=address,
+                                     slots=int(slots),
+                                     free_slots=int(slots))
+                self._fleet[sid] = member
+            member.address = address
+            member.slots = int(slots)
+            member.last_heartbeat = now
+            self._fleet_transition_locked(member, emsg.MEMBER_ACTIVE)
+            return self._fleet_epoch
+
+    def fleet_heartbeat(self, server_id: int, free_slots: int,
+                        queue_depth: int, weight_version: int,
+                        active_streams: int,
+                        prefix_fp: bytes = b"") -> int | None:
+        """Load refresh; returns the server's own state (its drain
+        signal), or None for an unknown or GONE server, which then
+        registers again.  The fingerprint rides every beat."""
+        now = self._time()
+        with self._lock:
+            member = self._fleet.get(int(server_id))
+            if member is None or member.state == emsg.MEMBER_GONE:
+                return None
+            member.last_heartbeat = now
+            member.free_slots = int(free_slots)
+            member.queue_depth = int(queue_depth)
+            member.weight_version = int(weight_version)
+            member.active_streams = int(active_streams)
+            member.prefix_fp = bytes(prefix_fp)
+            return member.state
+
+    def fleet_drain(self, server_id: int) -> bool:
+        """Mark a decode server DRAINING: it stops admitting, finishes
+        its in-flight streams and leaves.  False when unknown or gone."""
+        with self._lock:
+            member = self._fleet.get(int(server_id))
+            if member is None or member.state == emsg.MEMBER_GONE:
+                return False
+            self._fleet_transition_locked(member, emsg.MEMBER_DRAINING)
+            return True
+
+    def fleet_leave(self, server_id: int) -> bool:
+        """Graceful leave: the row goes GONE now and stays in the table
+        (ids are the operator's; a rejoin reuses the row)."""
+        with self._lock:
+            member = self._fleet.get(int(server_id))
+            if member is None:
+                return False
+            return self._fleet_transition_locked(member, emsg.MEMBER_GONE)
+
+    def fleet_table(self) -> tuple[int, list[FleetMember], int]:
+        """(fleet epoch, row copies sorted by server id, scale target)."""
+        with self._lock:
+            return (self._fleet_epoch,
+                    [dataclasses.replace(self._fleet[sid])
+                     for sid in sorted(self._fleet)],
+                    self._fleet_target)
+
+    def fleet_state(self, server_id: int) -> int | None:
+        with self._lock:
+            member = self._fleet.get(int(server_id))
+            return None if member is None else member.state
+
+    def set_fleet_target(self, n: int) -> int:
+        """The manual scale target (0 hands control back to the
+        autoscaler's watermarks).  Returns the fleet epoch."""
+        with self._lock:
+            self._fleet_target = max(0, int(n))
+            self._fleet_epoch += 1
+            return self._fleet_epoch
+
+    def remove_stale_fleet(self, timeout_s: float = 30.0) -> list[int]:
+        """Mark decode servers silent for more than ``timeout_s`` GONE;
+        returns the newly gone ids."""
+        now = self._time()
+        evicted: list[int] = []
+        with self._lock:
+            for member in self._fleet.values():
+                if (member.state != emsg.MEMBER_GONE
+                        and now - member.last_heartbeat > timeout_s
+                        and self._fleet_transition_locked(
+                            member, emsg.MEMBER_GONE)):
+                    evicted.append(member.server_id)
+        return evicted

@@ -176,6 +176,9 @@ def decode_block(model: Transformer, params: Mapping[str, Tensor],
     positions lengths[b].. and attends within its own prefix; cache.length
     is left alone.  Writes past max_len are dropped, not clamped (the
     reference's mode="drop"): a retired serving lane keeps advancing.
+    So are writes at negative positions, which the reference wraps to
+    the end of the row: a never-used lane's draft catch-up writes at -1
+    (ROADMAP.md Queue 3).
 
     An int8 cache (:class:`QuantKVCache`) takes the block's K/V through
     ``kv_quantize`` and its attention through ``decode_attention_int8``
@@ -201,10 +204,11 @@ def decode_block(model: Transformer, params: Mapping[str, Tensor],
         slots = torch.arange(max_len, device=dev)
         mask = (slots[None, None, :] <= positions[:, :, None])[:, None, None]
         if lengths is not None:
-            # index_put_ raises on out-of-range positions: keep the
-            # in-range writes (one host sync per block, shared by every
-            # layer)
-            keep = (positions < max_len).reshape(-1).nonzero().squeeze(1)
+            # index_put_ raises past the end and wraps a negative
+            # position: keep the writes in [0, max_len) (one host sync
+            # per block, shared by every layer)
+            keep = ((positions >= 0) & (positions < max_len)).reshape(
+                -1).nonzero().squeeze(1)
             rows = torch.arange(batch, device=dev)[:, None].expand(batch, t)
             w_rows = rows.reshape(-1)[keep]
             w_pos = positions.reshape(-1)[keep]

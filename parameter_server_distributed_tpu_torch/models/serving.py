@@ -22,8 +22,9 @@ models/quant.py ``quantize_params`` store serves unchanged.
 (models/prefix_tree.py).  ``draft=`` turns on speculative continuous
 batching: each step is one speculative round over all slots
 (generation.spec_round), so a request advances 1..k+1 tokens a target
-forward.  A mesh is not ported yet; asking for one raises and names its
-ROADMAP item.
+forward.  ``swap_params`` hot-swaps the weights between rounds (the
+decode fleet's rolling updates, fleet/decode.py).  A mesh is not ported
+yet; asking for one raises and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -149,6 +150,8 @@ class DecodeServer:
         # suffix, miss: all) against prompt tokens admitted
         self._prefill_tokens = 0
         self._prompt_tokens = 0
+        self._n_swaps = 0          # weight hot-swaps (swap_params)
+        self.params_version = 0    # the version swap_params last set
         self._obs_round = obs_stats.histogram("serve.round_s")
         self._obs_tokens = obs_stats.counter("serve.tokens")
         self._obs_active = obs_stats.gauge("serve.active_slots")
@@ -250,6 +253,36 @@ class DecodeServer:
     @property
     def _speculating(self) -> bool:
         return self.draft is not None and self._k > 0
+
+    # ------------------------------------------------------------- admin
+    def swap_params(self, params: Mapping[str, torch.Tensor], *,
+                    version: int | None = None) -> None:
+        """Hot-swap the model weights; call between decode rounds from
+        the thread that steps the server.  In-flight requests keep their
+        slots, cache rows and sampling state: their tokens so far stand
+        and their continuations decode under the new weights.
+
+        The prefix cache is cleared: its rows and logits were computed
+        under the old weights.  Raises ``ValueError`` on name or shape
+        drift against the current params (an int8 store's ``QTensor``
+        has its dense weight's shape), and when a tensor lies off the
+        server's device, so the caller keeps the last-good weights."""
+        current = {name: tuple(v.shape) for name, v in self.params.items()}
+        fresh = {name: tuple(v.shape) for name, v in params.items()}
+        if current != fresh:
+            drift = sorted(set(current) ^ set(fresh)) + sorted(
+                name for name in set(current) & set(fresh)
+                if current[name] != fresh[name])
+            raise ValueError(
+                f"published weights do not match the served model "
+                f"(name/shape drift: {drift[:4]}...)")
+        check_on_device(params, self.device)
+        self.params = params
+        if self._prefix_tree is not None:
+            self._prefix_tree.clear()
+        self._n_swaps += 1
+        if version is not None:
+            self.params_version = int(version)
 
     @property
     def idle(self) -> bool:
@@ -687,6 +720,8 @@ class DecodeServer:
             "requests_admitted": self._n_requests,
             "requests_completed": self._n_retired,
         }
+        if self._n_swaps:
+            out["weight_swaps"] = self._n_swaps
         if self.prompt_cache_size:
             out["prompt_cache_hits"] = self._prompt_hits
             out["prefix_hits"] = self._prefix_hits

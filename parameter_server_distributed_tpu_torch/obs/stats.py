@@ -1,8 +1,12 @@
 """Process-wide metric instruments: counters, gauges, log-bucket
 histograms — the port's own copy of the Counter/Gauge/Histogram/Registry
 part of parameter_server_distributed_tpu/obs/stats.py, which
-``DecodeServer``, the RPC layer, the PS service and ``Worker`` report
-into — and ``MetricsLogger``, the worker's JSONL record per iteration.
+``DecodeServer``, the RPC layer, the PS service, ``Worker`` and the
+decode fleet report into (the coordinator's ``fleet.servers.active``
+gauge, a fleet server's ``fleet.streams``, ``fleet.swaps`` and
+``fleet.queue_depth``, the router's ``fleet.routed`` and
+``fleet.route_rejected``) — and ``MetricsLogger``, the worker's JSONL
+record per iteration.
 
 Buckets are geometric with ratio 2**(1/4), so a percentile read off the
 bucket midpoints is within ~9% of the true value; snapshots are plain

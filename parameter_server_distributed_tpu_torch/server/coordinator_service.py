@@ -7,11 +7,15 @@ proto/coordinator.proto:5-10) and runs the cleanup thread (every 10 s,
 evict workers silent for more than 30 s — reference:
 src/coordinator_service.cpp:102-107).
 
-Only the reference's four RPCs are registered.  The JAX package's
-extensions — cluster metrics, the shard map, membership, the decode
-fleet and the tier topology (ROADMAP.md Queue 1, items 6, 10, 11, 13 and
-14) — answer UNIMPLEMENTED, which the JAX package's ``Worker`` latches as
-"unsupported" and carries on without.
+Beside the reference's four RPCs it serves the decode fleet's
+``UpdateFleet`` (fleet/messages.py ``FLEET_COORD_METHODS``: register,
+heartbeat, leave, drain, scale target, table query), and its reaper also
+marks decode servers silent for the stale timeout GONE.  The JAX
+package's other extensions (the shard map, membership and the tier
+topology, ROADMAP.md Queue 1, items 13, 11 and 10) answer UNIMPLEMENTED,
+which the JAX package's ``Worker`` latches as "unsupported" and carries
+on without; ``GetClusterMetrics`` and its fleet rollup (item 14,
+observability) answer UNIMPLEMENTED with that item named.
 """
 
 from __future__ import annotations
@@ -24,8 +28,16 @@ import grpc
 
 from ..config import CoordinatorConfig
 from ..core.coordinator_core import CoordinatorCore
+from ..fleet import messages as fmsg
 from ..rpc import messages as m
 from ..rpc.service import bind_service, make_server
+from ..rpc.wire import Message
+
+ROADMAP_OBS = ("GetClusterMetrics is not ported yet: ROADMAP.md Queue 1, "
+               "item 14 (observability: obs/export.py and the fleet "
+               "rollup)")
+# bound only to refuse with the item named (its messages are item 14's)
+_UNPORTED_METHODS = {"GetClusterMetrics": (Message, Message)}
 
 log = logging.getLogger("pst.coordinator")
 
@@ -70,6 +82,55 @@ class CoordinatorService:
         addr, port = self.core.get_parameter_server_address()
         return m.GetPSAddressResponse(address=addr, port=port)
 
+    def GetClusterMetrics(self, request, context):
+        context.abort(grpc.StatusCode.UNIMPLEMENTED, ROADMAP_OBS)
+
+    # the decode fleet: register, heartbeat, leave, drain, scale target
+    # and table query in one method (the JAX package's
+    # server/coordinator_service.py:174-222)
+    def UpdateFleet(self, request: fmsg.FleetRequest,
+                    context) -> fmsg.FleetResponse:
+        ok, message = True, "ok"
+        sid = int(request.server_id)
+        if request.action == fmsg.FLEET_REGISTER:
+            self.core.fleet_register(sid, request.address, request.slots)
+            log.info("decode server %d registered (%s, %d slots)",
+                     sid, request.address, request.slots)
+        elif request.action == fmsg.FLEET_HEARTBEAT:
+            state = self.core.fleet_heartbeat(
+                sid, request.free_slots, request.queue_depth,
+                request.weight_version, request.active_streams,
+                prefix_fp=bytes(request.prefix_fp))
+            if state is None:
+                ok, message = False, f"server {sid} unknown (re-register)"
+        elif request.action == fmsg.FLEET_LEAVE:
+            self.core.fleet_leave(sid)
+            log.info("decode server %d left the fleet", sid)
+        elif request.action == fmsg.FLEET_DRAIN:
+            target = int(request.target_server_id)
+            ok = self.core.fleet_drain(target)
+            message = (f"server {target} draining" if ok
+                       else f"server {target} unknown or already gone")
+            log.warning("fleet drain request for server %d: %s",
+                        target, message)
+        elif request.action == fmsg.FLEET_SCALE:
+            self.core.set_fleet_target(int(request.scale_target))
+            message = f"scale target {int(request.scale_target)}"
+            log.info("fleet %s", message)
+        epoch, fleet, target = self.core.fleet_table()
+        self_state = self.core.fleet_state(sid)
+        return fmsg.FleetResponse(
+            epoch=epoch, success=ok, message=message,
+            self_state=self_state if self_state is not None else -1,
+            scale_target=target,
+            entries=[fmsg.FleetEntry(
+                server_id=f.server_id, address=f.address, slots=f.slots,
+                free_slots=f.free_slots, queue_depth=f.queue_depth,
+                weight_version=f.weight_version, state=f.state,
+                epoch=f.epoch, active_streams=f.active_streams,
+                prefix_fp=f.prefix_fp)
+                for f in fleet])
+
 
 class Coordinator:
     """Process-level assembly (reference: run_coordinator_server at
@@ -87,7 +148,8 @@ class Coordinator:
         """Start serving; returns the bound port (0 in config = ephemeral)."""
         self._server = make_server()
         bind_service(self._server, m.COORDINATOR_SERVICE,
-                     m.COORDINATOR_METHODS, self.service)
+                     {**m.COORDINATOR_METHODS, **fmsg.FLEET_COORD_METHODS,
+                      **_UNPORTED_METHODS}, self.service)
         addr = f"{self.config.bind_address}:{self.config.port}"
         port = self._server.add_insecure_port(addr)
         if port == 0:
@@ -105,6 +167,9 @@ class Coordinator:
             for wid in self.core.remove_stale_workers(
                     self.config.stale_timeout_s):
                 log.warning("evicted stale worker %d", wid)
+            for sid in self.core.remove_stale_fleet(
+                    self.config.stale_timeout_s):
+                log.warning("evicted stale decode server %d", sid)
 
     def wait(self) -> None:
         assert self._server is not None

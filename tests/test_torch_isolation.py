@@ -48,6 +48,18 @@ def test_no_jax_import_in_port_sources():
     assert found == []
 
 
+def test_fleet_and_elastic_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("elastic", "messages.py"),
+            os.path.join("fleet", "__init__.py"),
+            os.path.join("fleet", "messages.py"),
+            os.path.join("fleet", "decode.py"),
+            os.path.join("fleet", "router.py"),
+            os.path.join("fleet", "controller.py"),
+            os.path.join("cli", "route_main.py"),
+            os.path.join("cli", "ctl_main.py")} <= scanned
+
+
 def test_name_match_is_whole_name():
     assert _blocked("jax.numpy") and _blocked("parameter_server_distributed_tpu")
     assert not _blocked("parameter_server_distributed_tpu_torch.models")
@@ -166,17 +178,50 @@ def test_port_imports_and_serves_with_jax_blocked():
                     client.close()
             finally:
                 server.stop()
+        # a decode fleet in process: coordinator, server, router, stream
+        from parameter_server_distributed_tpu_torch.fleet import \
+            messages as fmsg
+        from parameter_server_distributed_tpu_torch.fleet.decode import \
+            FleetDecodeServer
+        from parameter_server_distributed_tpu_torch.fleet.router import \
+            FleetRouter
+        from parameter_server_distributed_tpu_torch.rpc.service import \
+            RpcClient
+        from parameter_server_distributed_tpu_torch.server \
+            .coordinator_service import Coordinator
+        coordinator = Coordinator(config.CoordinatorConfig(
+            bind_address="127.0.0.1", port=0))
+        caddr = f"127.0.0.1:{{coordinator.start()}}"
+        model = get_model("tiny_lm")
+        fleet = FleetDecodeServer(DecodeServer(
+            model, model.init_params(0, device="cpu"), slots=1, max_len=32,
+            device="cpu"), coordinator=caddr, heartbeat_s=0.05)
+        fleet.start()
+        router = FleetRouter(caddr, poll_s=0.05)
+        client = RpcClient(f"127.0.0.1:{{router.start()}}",
+                           fmsg.DECODE_SERVICE, fmsg.DECODE_METHODS)
+        try:
+            chunks = list(client.call("SubmitStream", fmsg.DecodeRequest(
+                tokens=[1, 2, 3], max_new=3), timeout=60))
+            assert chunks[-1].done and not chunks[-1].error
+            assert len(chunks) == 4
+        finally:
+            client.close()
+            router.stop()
+            fleet.stop()
+            coordinator.stop()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served, trained, ran a PS session and a round over shm")
+        print("served, trained, ran a PS session, a round over shm and "
+              "a fleet stream")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "a round over shm" in proc.stdout
+    assert "a fleet stream" in proc.stdout
 
 
 def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
@@ -228,6 +273,9 @@ def test_entry_points_refuse_cpu_without_a_card(monkeypatch):
         DecodeServer(model, params, slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_main.main(["--model=tiny_lm"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_main.main(["--model=tiny_lm", "--serve-port=0",
+                         "--coordinator=127.0.0.1:1"])
 
 
 def test_cpu_params_refused_for_another_device():

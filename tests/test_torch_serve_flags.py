@@ -91,7 +91,8 @@ def _case(flags, error, needle, case_id=None):
                         id=case_id or f"{flags}-{needle}")
 
 
-# --draft-model, --beam, --length-penalty and --draft-len are ported:
+# --draft-model, --beam, --length-penalty, --draft-len and --serve-port
+# are ported:
 # their cases now hold the reference's own checks of those options (each
 # keeps its case's id); the flags still unported refuse naming their item
 @pytest.mark.parametrize("flags,error,needle", [
@@ -102,7 +103,7 @@ def _case(flags, error, needle, case_id=None):
           "--draft-model=tiny_lm-speculative"),
     _case("--follow=127.0.0.1:1", SystemExit, "item 12: .*swap_params",
           "--follow=127.0.0.1:1-swap_params"),
-    _case("--serve-port=50070", SystemExit, "item 6c: .*fleet registry",
+    _case("--serve-port", SystemExit, "explicit value",
           "--serve-port=50070-fleet registry"),
     _case("--fused-rounds", SystemExit, "explicit value"),
     _case("--lora-alpha", SystemExit, "explicit value"),
