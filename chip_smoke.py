@@ -36,8 +36,9 @@ two paths of the port:
 - the decode fleet: fleet_wire runs cli.coordinator_main, two
   cli.serve_main processes in fleet mode (llama_350m bf16, the prefix
   cache) and cli.route_main on the card, this process the client
-  through the router: a shared prefix's 8 extensions all on its
-  holder, a 16-stream burst on two servers, ctl_main fleet-drain 1
+  through the router, at the default fingerprint cap: a shared prefix's
+  8 extensions all on its holder, a 16-stream burst on two servers at
+  rest and one right after it, 8 on each, ctl_main fleet-drain 1
   mid-burst (server 1 finishes, shows GONE, exits 0), the burst again on
   the fleet of one, each server's flash launches from its exit report;
   fleet_update runs two in-process FleetDecodeServers (int8 weights and
@@ -45,6 +46,12 @@ two paths of the port:
   FleetRouter: a rolling update mid-burst (version stamps 0...0 1...1,
   no stream dropped), a rollback pin, a drifted store refused, K5-K7
   launches exact, a 2-layer f32 fleet token-exact against generate;
+- live weight publication (delta_follow): cli.ps_main (llama_350m, the
+  device close), cli.coordinator_main and one cli.worker_main training,
+  and cli.serve_main --follow (int8 weights and cache) hot-swapping
+  every version the PS publishes while a burst of 8 streams runs; every
+  followed version's crc the PS's, the last one byte for byte a full
+  bf16 pull (a second follower in this process), no stream broken;
 - training: full-width llama_350m (bf16, remat "full", loss_chunk 128,
   flash attention, weights from a seed) taking 5 Trainer.compute_gradients
   -> PallasOptimizer("adam").apply steps on one batch of 8 x 1024 random
@@ -2038,14 +2045,13 @@ def cli_spec() -> None:
 # the decode fleet phases: new tokens of the burst streams, of the
 # drained burst (long enough that a drain lands mid-stream) and of the
 # mid-burst rolling update's streams; the router's table poll; the
-# fingerprint cap of the fleet processes (the default 64 hashes hold only
-# the first cached paths, and the warm-up and uniform arms cache longer
-# prompts than the shared prefix); wall-clock limits
+# fingerprint cap the fleet processes run at (models.prefix_tree.fp_max's
+# default: it holds the first blocks of every cached path); wall-clock
+# limits
 FLEET_DRAIN_NEW = 128
 FLEET_UPDATE_NEW = 96
 FLEET_POLL_S = 0.1
-FLEET_FP_MAX = 1024
-FLEET_FP_DEFAULT = 64      # models.prefix_tree.fp_max's default
+FLEET_FP_DEFAULT = 64
 FLEET_LIMIT_S = 360.0
 
 
@@ -2242,15 +2248,15 @@ def fleet_wire(np, rng) -> dict:
     process is the client, every stream through the router.  After a
     warm-up of each server's prefill buckets: the shared-prefix arm (one
     warm stream of a 1024-token prefix, a wait until its holder's
-    heartbeat carries the prefix's fingerprint, then its 8 extensions at
-    once, which must all land on the holder and forward far fewer tokens
-    than they hold; beside it the same lengths without a shared prefix
-    sent straight to the other server, and the placement the router's
-    score gives from the same table at the default fingerprint cap,
-    computed and printed), the uniform arm (serve's 8 prompt lengths
-    twice over, 16 at once, each arm sent to a fleet at rest; then once
-    more at once without waiting, its placement printed, not held),
-    then a burst of 8 long
+    heartbeat carries the prefix's blocks at the default fingerprint cap,
+    then its 8 extensions at once, which must all land on the holder and
+    forward far fewer tokens than they hold; beside it the same lengths
+    without a shared prefix sent straight to the other server, and the
+    placement the router's score gives from the same table, computed
+    and printed), the uniform arm (serve's 8 prompt lengths twice over,
+    16 at once, sent to a fleet at rest; then once more at once without
+    waiting, on heartbeats of the last burst, which must land 8 and 8
+    too), then a burst of 8 long
     streams with ``ctl_main fleet-drain 1`` sent mid-burst (server 1
     finishes its in-flight streams, shows GONE and exits 0 by itself),
     then the uniform arm again against the fleet of one.  SIGTERM ends
@@ -2263,8 +2269,8 @@ def fleet_wire(np, rng) -> dict:
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="fleet_wire-",
                            dir=os.path.join(HERE, "build"))
-    env = child_env(tmp, PSDT_FLASH_ATTENTION="1",
-                    PSDT_PREFIX_FP_MAX=str(FLEET_FP_MAX))
+    env = child_env(tmp, PSDT_FLASH_ATTENTION="1")
+    env.pop("PSDT_PREFIX_FP_MAX", None)
     try:
         return _fleet_wire_in(tmp, _spawner(tmp, env), np, rng)
     finally:
@@ -2322,14 +2328,18 @@ def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
                       if decode_status(address[sid]).streams_served
                       > served[sid])
         other = 1 - holder
-        want = PREFIX_LEN // fp_block()
         hashes = block_hashes(exts[0])
         t_fp = time.perf_counter()
-        wait_until(lambda: any(
-            int(e.server_id) == holder
-            and overlap_blocks(hashes, unpack_fp(bytes(e.prefix_fp)))
-            >= want for e in fleet_rows(caddr)), deadline,
-            "the holder's heartbeat to carry the prefix")
+
+        def advertised() -> int:
+            return max((overlap_blocks(hashes, unpack_fp(bytes(e.prefix_fp)))
+                        for e in fleet_rows(caddr)
+                        if int(e.server_id) == holder), default=0)
+
+        # the 8 extensions all stay on the holder while its advertised
+        # blocks outbid the other server's 8 free slots
+        wait_until(lambda: advertised() >= len(PREFIX_SUFFIXES), deadline,
+                   "the holder's heartbeat to carry the prefix")
         fp_wait = time.perf_counter() - t_fp
         ctl = subprocess.run(
             [sys.executable, "-m", f"{PACKAGE}.cli.ctl_main", "fleet",
@@ -2343,8 +2353,7 @@ def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
         # poll route on the old table: settle() refreshes it first
         settle(caddr, raddr, deadline)
         rows = fleet_rows(caddr)
-        at_cap = {cap: placement_at_cap(rows, exts, cap)
-                  for cap in (FLEET_FP_MAX, FLEET_FP_DEFAULT)}
+        at_cap = placement_at_cap(rows, exts, FLEET_FP_DEFAULT)
         before = {sid: decode_status(address[sid]) for sid in (0, 1)}
         arm = Burst(raddr, exts, 8).run()
         after = {sid: decode_status(address[sid]) for sid in (0, 1)}
@@ -2359,10 +2368,12 @@ def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
         out["prefix"] = {"holder": holder, "landed": landed,
                          "prefill_over_prompt": ratio,
                          "fingerprint_wait_s": fp_wait,
+                         "advertised_blocks": advertised(),
+                         "prefix_blocks": PREFIX_LEN // fp_block(),
+                         "fp_max": FLEET_FP_DEFAULT,
                          "warm_stream": warm, "extensions": arm,
                          "no_shared_prefix": base,
-                         "computed_placement": {
-                             f"fp_max_{cap}": v for cap, v in at_cap.items()},
+                         "computed_placement": at_cap,
                          "ctl_fleet": ctl.stdout}
         if landed[holder] != 8 or landed[other] != 0 or ratio >= 0.5 \
                 or arm["errors"] or arm["short"]:
@@ -2379,8 +2390,8 @@ def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
             sid: decode_status(address[sid]).streams_served - served[sid]
             for sid in (0, 1)}
         # the same lengths again at once, the fleet not settled: the
-        # router places by heartbeats from the last burst (printed, not
-        # held: the limits above are measured at rest)
+        # table holds heartbeats of the last burst, the router's claims
+        # and credits (fleet/router.py) place by the slots free now
         served = {sid: decode_status(address[sid]).streams_served
                   for sid in (0, 1)}
         prompts = [rng.integers(0, vocab, n).tolist() for n in PROMPT_LENS]
@@ -2426,6 +2437,10 @@ def _fleet_wire_in(tmp: str, spawn, np, rng) -> dict:
         for name in ("uniform_2", "uniform_2_unsettled", "uniform_1"):
             if out[name]["errors"] or out[name]["short"]:
                 fail(f"fleet_wire {name}: {out[name]}")
+        for name in ("uniform_2", "uniform_2_unsettled"):
+            if out[name]["landed"] != {0: 8, 1: 8}:
+                fail(f"fleet_wire {name} landed {out[name]['landed']}: "
+                     f"want 8 on each server")
 
         for proc, log in (servers[0], (router, router_log),
                           (coord, coord_log)):
@@ -2784,6 +2799,264 @@ def fleet_update(torch, np, rng) -> dict:
           "dtype": "bfloat16, int8 weights and KV cache", "servers": 2,
           "slots": 8, "max_len": 2048, "new_tokens": FLEET_UPDATE_NEW,
           **out})
+    return launches
+
+
+# delta_follow: a llama_350m PS on its device close with one worker, and a
+# serve_main following it (fleet mode, int8 weights and cache); the worker's
+# rounds, then a wait for its first two closes without a subscriber; the
+# burst's streams and tokens; the phase's wall-clock limit
+FOLLOW = dict(rounds=11, unfed_rounds=3, lr=1e-3, streams=8, max_new=640,
+              limit_s=300.0)
+
+
+def _metrics_steps(path: str) -> int:
+    """The iterations a worker's metrics file holds so far."""
+    if not os.path.exists(path):
+        return 0
+    with open(path) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def delta_follow(np, rng) -> dict:
+    """Live weight publication as its users run it, every process on the
+    card: cli.ps_main (llama_350m, sharded_adam under PSDT_DEVICE_APPLY=1
+    PSDT_ARENA=1, the whole close on the card, one worker),
+    cli.coordinator_main, one cli.worker_main (llama_350m bf16, batch 8,
+    FOLLOW["rounds"] gradient rounds over the rings) and, once the PS has
+    closed FOLLOW["unfed_rounds"] rounds with no delta receiver, one
+    cli.serve_main --follow (fleet mode, standalone, 8 slots x 2048,
+    --quant=int8 --kv-cache=int8).  The server subscribes (the PS arms
+    its delta chain then), swaps each followed version in between decode
+    rounds, uploaded through one pinned copy and quantized as the boot
+    weights were; this process follows the PS too (a second subscriber)
+    and sends the server a burst of 8 streams while versions land.
+
+    Held: the server's follower took every version as a checked delta
+    pair but its first, in one session, never degraded, each crc equal
+    to the one the PS published for that version; after the last round
+    this process's follower holds, byte for byte, a full bf16 pull's
+    decode, and the server's crc of it is the pull's; the server swapped
+    every version its follower handed over; every stream retires at
+    full length, its version stamps never fall and at least 3 versions
+    land during the burst; flash_fwd and K5-K7 launch in the server;
+    every child exits 0.  Printed: the chain's build ms per apply, the
+    PS's close with and without a subscriber, the pair bytes and the
+    changed share against a full bf16 serve, the publish-to-swap latency
+    per version on the host clock, the transform and swap times, each
+    process's peak card and host memory.  Returns the path's launches,
+    summed over the processes."""
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="delta_follow-",
+                           dir=os.path.join(HERE, "build"))
+    env = child_env(tmp, PSDT_FLASH_ATTENTION="1", PSDT_DEVICE_APPLY="1",
+                    PSDT_ARENA="1", PSDT_STRIPES=str(DEVICE_STRIPES),
+                    PSDT_SUBSCRIBE_POLL_S="0.2")
+    try:
+        return _delta_follow_in(tmp, _spawner(tmp, env), np, rng)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _delta_follow_in(tmp: str, spawn, np, rng) -> dict:
+    import signal
+
+    from parameter_server_distributed_tpu_torch.delta.chain import store_crc
+    from parameter_server_distributed_tpu_torch.delta.subscriber import \
+        WeightFollower
+    from parameter_server_distributed_tpu_torch.models.transformer import \
+        llama_350m
+    from parameter_server_distributed_tpu_torch.rpc import data_plane
+    from parameter_server_distributed_tpu_torch.rpc import messages as m
+
+    deadline = time.monotonic() + FOLLOW["limit_s"]
+    t0 = time.perf_counter()
+    marks: dict = {}
+    follower = None
+    try:
+        ps, ps_log = spawn("ps_main", "127.0.0.1:0", "1", "100000",
+                           "--optimizer=sharded_adam",
+                           f"--lr={FOLLOW['lr']}",
+                           f"--ckpt-dir={tmp}/ck", f"--report={tmp}/ps.json")
+        ps_addr = "127.0.0.1:" + _wait_line(
+            ps_log, r"Parameter server listening on [\d.]+:(\d+)", ps,
+            deadline)
+        coord, coord_log = spawn("coordinator_main", "127.0.0.1:0", ps_addr)
+        caddr = "127.0.0.1:" + _wait_line(
+            coord_log, r"Coordinator server listening on [\d.]+:(\d+)",
+            coord, deadline)
+        worker, worker_log = spawn(
+            "worker_main", caddr, "0", str(FOLLOW["rounds"] + 1),
+            "--model=llama_350m", f"--batch={TRAIN['batch']}",
+            "--dtype=bf16", f"--report={tmp}/worker.json")
+        metrics = os.path.join(tmp, "metrics-0.jsonl")
+        # the bootstrap and the first rounds close with no delta receiver
+        wait_until(lambda: _metrics_steps(metrics)
+                   >= FOLLOW["unfed_rounds"] + 1 or worker.poll() is not None,
+                   deadline, "the worker's first rounds")
+        marks["unfed_done_s"] = time.perf_counter() - t0
+        server, server_log = spawn(
+            "serve_main", "--model=llama_350m", "--slots=8",
+            "--max-len=2048", "--quant=int8", "--kv-cache=int8",
+            "--serve-port=0", f"--follow={ps_addr}", "--subscriber-id=1",
+            f"--report={tmp}/serve.json")
+        follower = WeightFollower(ps_addr, subscriber_id=2).start()
+        saddr = "127.0.0.1:" + _wait_line(
+            server_log, r"decode fleet server \d on port (\d+)", server,
+            deadline)
+        wait_until(lambda: decode_status(saddr).weight_version > 0,
+                   deadline, "the server's first followed version")
+        marks["server_ready_s"] = time.perf_counter() - t0
+        prompts = [rng.integers(0, 32000, n).tolist() for n in PROMPT_LENS]
+        streams = Burst(saddr, prompts, FOLLOW["max_new"])
+        burst_wall = [time.time()]
+        burst = streams.run()
+        burst_wall.append(time.time())
+        marks["burst_done_s"] = time.perf_counter() - t0
+        try:
+            rc = worker.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            rc = "still running"
+        if rc != 0:
+            with open(worker_log) as f:
+                fail(f"the worker exited {rc}: {f.read()[-3000:]}")
+        marks["worker_done_s"] = time.perf_counter() - t0
+        # the last version: a full bf16 pull, stamped with its version
+        client = data_plane.PSClient(ps_addr)
+        try:
+            pull = client.delta_pull(m.PullRequest(wire_dtype=m.WIRE_BF16),
+                                     timeout=120.0)
+        finally:
+            client.close()
+        if pull is None or pull.store is None or pull.served_delta:
+            fail("the PS answered no full bf16 pull of its last version")
+        final = pull.to_version
+        wait_until(lambda: follower.version == final
+                   and decode_status(saddr).weight_version == final,
+                   deadline, f"both followers at version {final}")
+        base = follower.base()
+        same = sorted(base) == sorted(pull.store) and all(
+            np.asarray(base[k]).tobytes() == pull.store[k].tobytes()
+            for k in pull.store)
+        pull_crc = store_crc(pull.store)
+        local = {"version": follower.version,
+                 "sessions": follower.sessions,
+                 "degraded": follower.degraded,
+                 "received": follower.versions_received}
+        follower.stop()
+        follower = None
+        for proc, log in ((server, server_log), (ps, ps_log),
+                          (coord, coord_log)):
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=120.0)
+            except subprocess.TimeoutExpired:
+                rc = "hung at SIGTERM"
+            if rc != 0:
+                with open(log) as f:
+                    fail(f"{proc.args[2]} exited {rc}: {f.read()[-3000:]}")
+    finally:
+        if follower is not None:
+            follower.stop()
+        for proc in spawn.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60.0)
+    reports = {}
+    for name in ("ps", "worker", "serve"):
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            reports[name] = json.load(f)
+    ps_r, serve_r = reports["ps"], reports["serve"]
+    published = {int(v): (int(crc), float(t))
+                 for v, crc, t in ps_r["delta"]["published"]}
+    fol = serve_r["follower"]
+    history = fol["history"]
+    swaps = {int(v): float(t) for v, t in serve_r["swaps"]}
+    bad_crc = [(v, crc) for v, crc, _t, delta in history
+               if delta and published.get(int(v), (None,))[0] != crc]
+    deltas = sum(1 for h in history if h[3])
+    stamps_ok = all(r["versions"] == sorted(r["versions"])
+                    for r in streams.results)
+    burst_versions = sorted({v for r in streams.results
+                             for v in r["versions"]})
+    landed = sorted(v for v, t in swaps.items()
+                    if burst_wall[0] <= t <= burst_wall[1])
+    latency = {v: t - published[v][1] for v, t in swaps.items()
+               if v in published}
+    stats = serve_r["stats"]
+    launches: dict = {}
+    for r in reports.values():
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    hist = ps_r["histograms"]
+    total = sum(int(np.prod(s)) for s in llama_350m().param_shapes().values())
+    out = {
+        "phase": "delta_follow", "model": "llama_350m",
+        "ps": "sharded_adam, PSDT_DEVICE_APPLY=1 PSDT_ARENA=1",
+        "server": "int8 weights and cache, 8 slots x 2048, fleet mode",
+        "marks_s": marks, "rounds": FOLLOW["rounds"],
+        "versions_published": len(published),
+        "follower": {k: fol[k] for k in ("version", "versions_received",
+                                          "versions_consumed", "sessions",
+                                          "degraded", "degrade_reason")},
+        "follower_deltas": deltas, "local_follower": local,
+        "final_version": final, "final_bytes_equal_full_pull": same,
+        "final_crc_equal": history[-1][1] in (None, pull_crc),
+        "weight_swaps": stats.get("weight_swaps"),
+        "burst": {k: v for k, v in burst.items()},
+        "burst_versions": burst_versions,
+        "versions_landed_in_burst": landed,
+        "chain_build_ms": hist.get("ps.serve.delta_build_ms"),
+        "close_s_with_subscriber": hist.get("ps.barrier_close_sink_s"),
+        "close_s_without_subscriber": hist.get("ps.barrier_close_nosink_s"),
+        "pair_bytes": ps_r["gauges"].get("ps.serve.delta_pair_bytes"),
+        "changed": ps_r["gauges"].get("ps.serve.delta_changed"),
+        "changed_share": (ps_r["gauges"].get("ps.serve.delta_changed", 0)
+                          / total),
+        "full_bf16_serve_bytes": 2 * total,
+        "delta_bytes_served": ps_r["counters"].get("ps.serve.delta_bytes"),
+        "publish_to_swap_s": {
+            "per_version": latency,
+            "p50": _pct(list(latency.values()), 50) if latency else None,
+            "max": max(latency.values()) if latency else None},
+        "transform_s": serve_r["histograms"].get("fleet.transform_s"),
+        "swap_s": serve_r["histograms"].get("fleet.swap_s"),
+        "follower_apply_s": serve_r["histograms"].get(
+            "serve.follow.apply_s"),
+        "peak_gb": {name: {"card": r["peak_mem_bytes"] / 1e9,
+                           "host_rss": r["peak_rss_bytes"] / 1e9}
+                    for name, r in reports.items()},
+        "launches": {name: {k: v for k, v in r["launches"].items() if v}
+                     for name, r in reports.items()},
+        "wall_s": time.perf_counter() - t0}
+    emit(out)
+    faults = []
+    if fol["degraded"] or fol["sessions"] != 1 or local["degraded"] \
+            or local["sessions"] != 1:
+        faults.append("a follower degraded or reconnected")
+    if bad_crc:
+        faults.append(f"followed crcs differ from the PS's: {bad_crc[:4]}")
+    if deltas < 3 or fol["version"] != final:
+        faults.append(f"{deltas} delta versions followed, at "
+                      f"{fol['version']} of {final}")
+    if not same or not out["final_crc_equal"]:
+        faults.append("the followed store is not the full pull's")
+    if stats.get("weight_swaps", 0) < fol["versions_consumed"]:
+        faults.append(f"{stats.get('weight_swaps')} swaps for "
+                      f"{fol['versions_consumed']} versions handed over")
+    if burst["errors"] or burst["short"] or not stamps_ok \
+            or len(landed) < 3:
+        faults.append(f"the burst: {burst['errors']}, {burst['short']} "
+                      f"short, stamps in order {stamps_ok}, versions "
+                      f"{landed} landed in it")
+    served = reports["serve"]["launches"]
+    if min(served.get(k, 0) for k in ("flash_fwd", *INT8_REPLACES)) <= 0:
+        faults.append(f"the server's launches {served}")
+    if faults:
+        fail(f"delta_follow: {'; '.join(faults)}")
     return launches
 
 
@@ -4650,6 +4923,9 @@ def main() -> int:
     fleet_update_launches = fleet_update(torch, np, rng)
     torch.cuda.empty_cache()
     emit({"phase": "fleet_done", "elapsed_s": time.perf_counter() - t_start})
+    follow_launches = delta_follow(np, rng)
+    emit({"phase": "delta_followed",
+          "elapsed_s": time.perf_counter() - t_start})
     train_launches = train(torch, np, fa, fu)
     torch.cuda.empty_cache()
     emit({"phase": "trained", "elapsed_s": time.perf_counter() - t_start})
@@ -4698,6 +4974,7 @@ def main() -> int:
                       "serve_spec": spec_launches.get(name, 0),
                       "fleet_wire": fleet_wire_launches.get(name, 0),
                       "fleet_update": fleet_update_launches.get(name, 0),
+                      "delta_follow": follow_launches.get(name, 0),
                       "train": train_launches.get(name, 0),
                       "ps_round": round_launches.get(name, 0),
                       "ps_device_round": device_launches.get(name, 0),
@@ -4724,14 +5001,16 @@ def main() -> int:
                 entry[key] = t[key]
         kernels.append(entry)
     # the device close's kernels run on the device-close paths only, the
-    # int8 serving kernels on serve_int8, serve_spec and fleet_update
-    # only; flash_fwd on both fleet paths
+    # int8 serving kernels on serve_int8, serve_spec, fleet_update and
+    # delta_follow only; flash_fwd on both fleet paths and delta_follow
     if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and min(
             k["launches_by_path"][path]
-            for path in ("serve_int8", "serve_spec", "fleet_update")) <= 0)
+            for path in ("serve_int8", "serve_spec", "fleet_update",
+                         "delta_follow")) <= 0)
            or (k["name"] == "flash_fwd" and min(
                k["launches_by_path"][path]
-               for path in ("fleet_wire", "fleet_update")) <= 0)
+               for path in ("fleet_wire", "fleet_update",
+                            "delta_follow")) <= 0)
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            for k in kernels):

@@ -10,14 +10,19 @@ that fell back to the Python codec or to gRPC shows it, and the device
 close's counters: ``ps.apply.device`` (closes that published a device
 store), ``ps.apply.device_fallback`` and ``ps.apply.arena_fallback``.
 The launch counts include ``ops.device_apply``'s four kernels and
-``ops.int8_serve``'s three; the PS adds its optimizer's class
-(``optimizer``), a fleet decode server its stats and streams served.
+``ops.int8_serve``'s three; ``peak_rss_bytes`` is the process's peak
+resident host memory.  The PS adds its optimizer's class
+(``optimizer``) and its delta chain's state (``delta``: armed or not,
+the (version, crc, wall time) of the last versions published), a
+serving process its stats, streams served and, following a PS, its
+follower's state and swaps.
 ``chip_smoke.py`` reads it to check and report the processes' work."""
 
 from __future__ import annotations
 
 import json
 import os
+import resource
 
 import torch
 
@@ -42,6 +47,9 @@ def write_exit_report(path: str, role: str, **extra) -> None:
                      **device_apply.launches, **int8_serve.launches},
         "peak_mem_bytes": (torch.cuda.max_memory_allocated()
                            if torch.cuda.is_initialized() else 0),
+        # Linux reports ru_maxrss in KiB
+        "peak_rss_bytes": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
         "counters": snap["counters"],
         "gauges": snap["gauges"],
         "histograms": {name: obs_stats.REGISTRY.histogram(name).summary()

@@ -114,7 +114,8 @@ def main(argv: list[str] | None = None) -> int:
         if report:
             from .exit_report import write_exit_report
             write_exit_report(report, "ps",
-                              optimizer=type(ps.optimizer).__name__)
+                              optimizer=type(ps.optimizer).__name__,
+                              delta=ps.service.delta_report())
     return 0
 
 

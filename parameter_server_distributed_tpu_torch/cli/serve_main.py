@@ -20,12 +20,22 @@
                              # unless --no-adaptive-draft pins it
         [--serve-port=P [--coordinator=HOST:PORT] [--server-id=N]]
                              # decode fleet mode (gRPC, below)
+        [--follow=HOST:PORT [--subscriber-id=N]]
+                             # live weights from a training PS (below)
         [--report=PATH]      # exit report (cli/exit_report.py)
 
 Weights come from ``--ckpt`` (the host checkpoint format the PS writes;
 a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
 ``--seed``.  ``--quant=int8`` quantizes them (models/quant.py) and
-``--kv-cache=int8`` the slot cache.  The model runs on the CUDA card
+``--kv-cache=int8`` the slot cache.  ``--follow`` subscribes to a
+training PS (delta/subscriber.py ``WeightFollower``, ``SubscribeWeights``
+on the port's or the JAX package's PS) and hot-swaps each new weight
+version between decode rounds: the follower's host float32 store goes
+to the card in the server's dtype through one pinned copy
+(models/convert.py ``StoreUploader``), then through the ``--quant``
+quantizer, as the boot weights do.  A feed that fails degrades to the
+last good weights; the server never stops for it.  The model runs on
+the CUDA card
 unless ``--device=cpu`` asks for the CPU; with no card and no such
 request it exits with an error.  ``PSDT_FLASH_ATTENTION=1`` routes
 prefill attention through the flash kernel.  With ``--draft-model``
@@ -54,7 +64,8 @@ so ``cli.route_main`` routes streams to it.  Published weight versions
 go through the same ``--quant`` transform as the boot weights.  SIGTERM
 drains: the in-flight streams finish, the server leaves the fleet and
 the process exits 0.  ``--report`` writes the kernel launch counts, the
-server's stats and the streams served at exit.
+server's stats and the streams served at exit, and with ``--follow``
+the follower's versions, sessions and checksums and the server's swaps.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ import json
 import queue
 import sys
 import threading
+import time
 
 from ..config import parse_argv, require_flag_value
 from . import generate_main
@@ -74,7 +86,7 @@ KNOWN_FLAGS = frozenset({
     "scan-layers", "no-scan-layers", "draft-model", "draft-ckpt",
     "draft-seed", "draft-len", "no-adaptive-draft", "draft-cost-ratio",
     "draft-lora-alpha", "serve-port", "coordinator", "server-id",
-    "report",
+    "report", "follow", "subscriber-id",
 })
 
 # the reference's other pst-serve flags, and where each is planned
@@ -84,10 +96,6 @@ UNPORTED_FLAGS = {
                     "train_loop: checkpoint/sharded.py)"),
     "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, item 7, other model "
                "families: hf.py)",
-    **dict.fromkeys(("follow", "subscriber-id"),
-                    "live weight publication (ROADMAP.md Queue 1, item "
-                    "12: delta/subscriber.py, the feed into "
-                    "swap_params)"),
 }
 
 
@@ -141,11 +149,18 @@ def main(argv: list[str] | None = None) -> int:
                        "--server-id", "--report",
                        hint="fleet mode, e.g. --serve-port=50070 "
                             "--coordinator=10.0.0.5:50052 --server-id=0")
+    # bare --follow would serve the boot weights forever
+    require_flag_value(argv, "--follow", "--subscriber-id",
+                       hint="the training PS to track, e.g. "
+                            "--follow=10.0.0.5:50051")
     generate_main.check_flags(argv, {k: v for k, v in flags.items()
                                      if k in generate_main.KNOWN_FLAGS})
 
+    import os
+
     from ..data.text import ByteTokenizer, require_vocab
     from ..device import resolve_device
+    from ..models.convert import StoreUploader
     from ..models.quant import quantize_params
     from ..models.serving import DecodeServer
 
@@ -176,6 +191,28 @@ def main(argv: list[str] | None = None) -> int:
             adaptive_draft="no-adaptive-draft" not in flags,
             draft_cost_ratio=generate_main.draft_cost_ratio(flags, draft,
                                                             model))
+    follower = None
+    if flags.get("follow"):
+        # live weight publication: every failure degrades to the last
+        # good weights (delta/subscriber.py)
+        from ..delta.subscriber import WeightFollower
+
+        follower = WeightFollower(
+            flags["follow"],
+            subscriber_id=int(flags.get("subscriber-id",
+                                        str(os.getpid() & 0x7FFF))))
+        follower.start()
+        print(f"following weights from {flags['follow']}",
+              file=sys.stderr, flush=True)
+    # one binding for both weight paths: a followed store goes to the
+    # card in the model's dtype and layout, then quantizes as the boot
+    # weights did
+    upload = StoreUploader(model.config, device)
+
+    def transform(store: dict) -> dict:
+        params = upload(store)
+        return quantize_params(params) if flags.get("quant") else params
+
     tokenizer = ByteTokenizer()
     eos = int(flags["eos"]) if flags.get("eos") else None
     srv = DecodeServer(
@@ -191,14 +228,31 @@ def main(argv: list[str] | None = None) -> int:
     default_max_new = int(flags.get("default-max-new", "64"))
     fused_rounds = int(flags.get("fused-rounds", "1"))
 
-    def report(streams_served: int | None = None) -> None:
+    def report(streams_served: int | None = None, swaps=None) -> None:
         if flags.get("report"):
             from .exit_report import write_exit_report
+            extra = {}
+            if follower is not None:
+                extra["follower"] = follower_report(follower)
+            if swaps is not None:
+                extra["swaps"] = [list(s) for s in swaps]
             write_exit_report(flags["report"], "serve", stats=srv.stats,
-                              streams_served=streams_served)
+                              streams_served=streams_served, **extra)
+
+    def stop_follower() -> None:
+        if follower is None:
+            return
+        follower.stop()
+        if follower.degraded:
+            print(f"weight follower degraded: {follower.degrade_reason} "
+                  f"(kept serving version {srv.params_version})",
+                  file=sys.stderr)
 
     if flags.get("serve-port") is not None or flags.get("coordinator"):
-        return _serve_fleet(srv, flags, quantize_params, report)
+        try:
+            return _serve_fleet(srv, flags, transform, follower, report)
+        finally:
+            stop_follower()
 
     in_q: "queue.Queue[tuple | None]" = queue.Queue()
     threading.Thread(target=_reader, args=(in_q,), daemon=True,
@@ -224,10 +278,32 @@ def main(argv: list[str] | None = None) -> int:
             done["tokens"] = tokens
         _emit(done)
 
+    swaps: list = []
+
     def finish_run() -> int:
+        stop_follower()
         print(f"serving stats: {json.dumps(srv.stats)}", file=sys.stderr)
-        report()
+        report(swaps=swaps)
         return 0
+
+    def maybe_swap() -> None:
+        """Swap in the follower's newest version, between admissions; a
+        bad publication keeps the last good weights."""
+        if follower is None:
+            return
+        fresh = follower.poll()
+        if fresh is None:
+            return
+        store, version = fresh
+        try:
+            srv.swap_params(transform(store), version=version)
+        except Exception as exc:  # noqa: BLE001 — the serving boundary:
+            # decoding goes on with the last good weights
+            print(f"weight swap to version {version} failed ({exc}); "
+                  f"keeping last-good weights", file=sys.stderr)
+            return
+        swaps.append((version, time.time()))
+        print(f"weights: swapped to version {version}", file=sys.stderr)
 
     def admit() -> None:
         while pending and srv.has_free_slot:
@@ -285,13 +361,20 @@ def main(argv: list[str] | None = None) -> int:
                     pending.append(payload)
         except queue.Empty:
             pass
+        # between admissions no round is in flight: the swap point
+        maybe_swap()
         admit()
         if srv.idle:
             if eof and not pending:
                 return finish_run()
             if not pending:
-                # nothing in flight: block for the next request (or EOF)
-                item = in_q.get()
+                # nothing in flight: block for the next request (or EOF);
+                # a follower wakes it so versions swap in while idle
+                try:
+                    item = in_q.get(
+                        timeout=0.5 if follower is not None else None)
+                except queue.Empty:
+                    continue
                 if item is None:
                     return finish_run()
                 tag, payload = item
@@ -315,7 +398,17 @@ def main(argv: list[str] | None = None) -> int:
             del live[rid], text_mode[rid]
 
 
-def _serve_fleet(srv, flags: dict, quantize_params, report) -> int:
+def follower_report(follower) -> dict:
+    """A weight follower's state for the exit report."""
+    return {"target": follower.target, "version": follower.version,
+            "versions_received": follower.versions_received,
+            "versions_consumed": follower.versions_consumed,
+            "sessions": follower.sessions, "degraded": follower.degraded,
+            "degrade_reason": follower.degrade_reason,
+            "history": [list(h) for h in follower.history]}
+
+
+def _serve_fleet(srv, flags: dict, transform, follower, report) -> int:
     """Decode fleet mode: serve ``srv`` over gRPC until SIGTERM (or
     Ctrl-C) drains it; returns the exit code."""
     import signal
@@ -326,8 +419,9 @@ def _serve_fleet(srv, flags: dict, quantize_params, report) -> int:
         srv, server_id=int(flags.get("server-id", "0")),
         port=int(flags.get("serve-port", "0")),
         coordinator=flags.get("coordinator") or None,
+        follower=follower,
         # boot weights and every published version quantize alike
-        transform=quantize_params if flags.get("quant") else None)
+        transform=transform)
     port = fds.start()
     print(f"decode fleet server {fds.server_id} on port {port}"
           + (f", registered with {flags['coordinator']}"
@@ -344,7 +438,7 @@ def _serve_fleet(srv, flags: dict, quantize_params, report) -> int:
         fds.wait_drained(10.0)
     fds.stop()
     print(f"serving stats: {json.dumps(srv.stats)}", file=sys.stderr)
-    report(fds.streams_served)
+    report(fds.streams_served, fds.swaps)
     return 0
 
 

@@ -51,12 +51,21 @@ scale and the update one per stripe, and the published store is an
 layout cannot represent takes the per-tensor device close for that
 close, counted in ``ps.apply.arena_fallback``.
 
+The delta sink (:meth:`ParameterServerCore.set_delta_sink`, delta/chain.py
+``DeltaChain``) is told of every store the core publishes: the
+initialisation, each synchronous close (flat, striped, serial, the
+buffered fused mean-SGD), the bootstrap and, unlike the JAX package's
+core, each async apply; a restore resets it.  Each notification runs
+after the store's readback, outside ``_params_lock`` and inside the
+caller's serialized apply section.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item when asked for: tier contributions and aggregate ids, K-of-N quorum
 barriers, free-run mode, and ``PSDT_DEVICE_STAGE_CHUNK``.  Left out: the
-delta sink, the barrier relay, replication and resharding
-(``install_tensors``/``retire_tensors``), the sharded updater and the
-flight recorder (ROADMAP.md Queue 1).
+barrier relay (item 10), replication and resharding
+(``install_tensors``/``retire_tensors``, item 13; each resets the delta
+sink when it lands), the sharded updater and the flight recorder
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -312,6 +321,10 @@ class ParameterServerCore:
         self._peak_grad_buffer_bytes = 0
         self._obs_peak_buffer = obs_stats.gauge("ps.peak_grad_buffer_bytes")
         self._obs_barrier_close = obs_stats.histogram("ps.barrier_close_s")
+        # the same closes split by whether a delta sink was fed
+        self._obs_close_by_sink = {
+            False: obs_stats.histogram("ps.barrier_close_nosink_s"),
+            True: obs_stats.histogram("ps.barrier_close_sink_s")}
         # highest aggregated iteration: a straggler push for a GC'd
         # iteration is late, not a fresh state
         self._aggregated_watermark = -1
@@ -329,6 +342,8 @@ class ParameterServerCore:
         # called with the iteration by the thread that published a store
         # (see set_apply_hook)
         self._apply_hook: Callable[[int], None] | None = None
+        # the versioned-delta sink (see set_delta_sink)
+        self._delta_sink = None
         self._obs_readback = obs_stats.histogram("ps.apply.readback_s")
         # the flat arena (core/arena.py): streaming sync cores whose
         # optimizer speaks the slab family, on a device that exists
@@ -437,6 +452,38 @@ class ParameterServerCore:
         and must not take the state lock.  None removes it."""
         self._apply_hook = fn
 
+    # ------------------------------------------------------------------ delta
+    def set_delta_sink(self, sink, *, seed: bool = True) -> None:
+        """Install (or clear, with None) the versioned-delta sink:
+        ``sink.note_apply(store, version)`` after every store the core
+        publishes, ``sink.reset()`` on restore.  ``note_apply`` runs in
+        the serialized apply section and must not raise.
+
+        ``seed=True`` notes the live store now, which needs a quiescent
+        core (no apply running: the service owns the core before its
+        server starts).  A sink installed while applies may run (the
+        service's lazy arming) passes ``seed=False``: the next apply
+        reseeds it instead, one extra full serve and never a torn
+        base."""
+        self._delta_sink = sink
+        if sink is None or not seed:
+            return
+        with self._params_lock:
+            store, version = self._params, self._params_version
+            ready = self._params_ready()
+        if store and ready:
+            sink.note_apply(store, version)
+
+    def _notify_delta(self, store: TensorStore, version: int) -> None:
+        sink = self._delta_sink
+        if sink is not None:
+            sink.note_apply(store, version)
+
+    def _reset_delta(self) -> None:
+        sink = self._delta_sink
+        if sink is not None:
+            sink.reset()
+
     def release_waiters(self) -> None:
         """From now on :meth:`wait_for_aggregation` returns at once, not
         ready, and every call parked in it wakes: a stopping server's
@@ -453,8 +500,11 @@ class ParameterServerCore:
             self._params = store
             self._params_event = None
             self._params_version += 1
+            version = self._params_version
         if self._arena is not None:
             self._arena.invalidate()
+        # seeds the chain, so the first apply already serves a delta
+        self._notify_delta(store, version)
 
     def get_parameters(self) -> TensorStore:
         with self._params_lock:
@@ -820,7 +870,10 @@ class ParameterServerCore:
         state.workers_at_aggregation = received
         self._aggregated_watermark = max(self._aggregated_watermark,
                                          iteration)
-        self._obs_barrier_close.observe(time.perf_counter() - t0)
+        close_s = time.perf_counter() - t0
+        self._obs_barrier_close.observe(close_s)
+        self._obs_close_by_sink[self._delta_sink is not None].observe(
+            close_s)
         self._barrier_cv.notify_all()
         if self._apply_hook is not None:
             self._apply_hook(iteration)
@@ -1005,9 +1058,11 @@ class ParameterServerCore:
                 return   # initialize_parameters() landed: it wins
             self._params = store
             self._params_version += 1
+            version = self._params_version
         self._arena.adopt(store, new_slabs)
         self._arena.note_close()
         self._obs_device_applies.add()
+        self._notify_delta(store, version)
 
     def _apply_striped_sync(self, prev: TensorStore,
                             mean_grads: TensorStore) -> None:
@@ -1052,7 +1107,9 @@ class ParameterServerCore:
                 return
             self._params = new_params
             self._params_version += 1
+            version = self._params_version
         self._note_device_apply(new_params)
+        self._notify_delta(new_params, version)
 
     def _apply_fused_mean_sgd(self,
                               worker_gradients: Mapping[int, TensorStore]
@@ -1089,6 +1146,10 @@ class ParameterServerCore:
                 new_params[name] = p_new
             self._params = new_params
             self._params_version += 1
+            version = self._params_version
+        # still under _state_lock (the buffered close), outside
+        # _params_lock
+        self._notify_delta(new_params, version)
         return True
 
     def _apply_update(self, mean_grads: TensorStore) -> None:
@@ -1104,8 +1165,14 @@ class ParameterServerCore:
                                 for name in sorted(mean_grads)}
                 self._params_event = None
                 self._params_version += 1
-                return
-            prev, prev_event = self._params, self._params_event
+                store, version = self._params, self._params_version
+                boot = True
+            else:
+                prev, prev_event = self._params, self._params_event
+                boot = False
+        if boot:
+            self._notify_delta(store, version)
+            return
         if not self.synchronous:
             # depth bound: at most one apply in flight; wait for the
             # previous one (outside _params_lock, so serves go on)
@@ -1119,7 +1186,11 @@ class ParameterServerCore:
                 self._params = new_params
                 self._params_event = event
                 self._params_version += 1
+                version = self._params_version
             self._note_device_apply(new_params)
+            # the chain reads the store through to_host, which waits for
+            # the apply: only a core with a sink installed pays that
+            self._notify_delta(new_params, version)
         elif (self._stripes > 1 and self._optimizer.supports_striping
               and len(mean_grads) > 1):
             self._apply_striped_sync(prev, mean_grads)
@@ -1128,8 +1199,9 @@ class ParameterServerCore:
                 self._params = self._optimizer.apply(self._params,
                                                      mean_grads)
                 self._params_version += 1
-                store = self._params
+                store, version = self._params, self._params_version
             self._note_device_apply(store)
+            self._notify_delta(store, version)
 
     # ------------------------------------------------------------------- sync
     def check_sync_status(self, iteration: int) -> tuple[int, bool, int, int]:
@@ -1268,6 +1340,9 @@ class ParameterServerCore:
             self._grad_buffer_bytes = 0
             self._aggregated_watermark = -1
             self._bootstrap_iteration = None
+        # the restored store is a new world: no stale pair may patch a
+        # receiver toward it
+        self._reset_delta()
 
 
 def _mean_over_workers(worker_gradients: Mapping[int, TensorStore]

@@ -22,20 +22,28 @@ gRPC service and runs three loops:
   served until UNPIN), UNPIN and DRAIN.
 
 Versions come in through :meth:`FleetDecodeServer.publish_version`
-into a bounded store that never evicts the rollback pin; every store
-goes through ``transform`` before it swaps in (the int8 quantizer that
-cli/serve_main.py binds to ``--quant``, so boot weights and every swap
-quantize alike).  A standalone server advances to each published
-version itself; a fleet-registered one swaps when the controller says
-so.  Not ported: the weight feed ``follower=`` (ROADMAP.md Queue 1,
-item 12), flight events (item 14) and ``checked_lock`` (item 15).
+into a bounded store that never evicts the rollback pin, or from a live
+feed: ``follower=`` takes a delta/subscriber.py ``WeightFollower``,
+polled at every round boundary and while idle, each version it delivers
+published as if by ``publish_version``.  Every store goes through
+``transform`` before it swaps in (cli/serve_main.py binds the move to
+the card in the server's dtype, then the int8 quantizer under
+``--quant``, so boot weights and every swap quantize alike).  A
+standalone server advances to each published version itself; a
+fleet-registered one swaps when the controller says so.  Each swap's
+transform and swap times land in ``fleet.transform_s`` and
+``fleet.swap_s``, and :attr:`FleetDecodeServer.swaps` keeps (version,
+wall time) of the last swaps.  Not ported: flight events (ROADMAP.md
+Queue 1, item 14) and ``checked_lock`` (item 15).
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import queue
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable
 
@@ -50,9 +58,8 @@ from . import messages as fmsg
 
 log = logging.getLogger("pst.fleet.decode")
 
-ROADMAP_FOLLOW = ("follower= (a live weight feed) is not ported yet: "
-                  "ROADMAP.md Queue 1, item 12 (delta/subscriber.py "
-                  "WeightFollower)")
+# how many swaps FleetDecodeServer.swaps remembers
+SWAPS_KEPT = 256
 
 # Serializes the servers' forward passes when several FleetDecodeServers
 # share one process (tests, in-process fleets): one server's round runs
@@ -108,7 +115,8 @@ def box_fail(box: _CommandBox | None, why: str) -> None:
 
 class FleetDecodeServer:
     """See the module docstring.  ``transform`` maps every published
-    store before it swaps in."""
+    store before it swaps in; ``follower`` (an object with ``poll()`` and
+    ``stop()``) feeds versions, and is stopped with the server."""
 
     def __init__(self, server, *, server_id: int = 0, port: int = 0,
                  bind_address: str = "127.0.0.1",
@@ -116,9 +124,8 @@ class FleetDecodeServer:
                  follower=None, auto_advance: bool | None = None,
                  transform: Callable[[dict], dict] | None = None,
                  versions_kept: int = 4, heartbeat_s: float = 0.5):
-        if follower is not None:
-            raise NotImplementedError(ROADMAP_FOLLOW)
         self.server = server
+        self._follower = follower
         self.server_id = int(server_id)
         self._bind = f"{bind_address}:{int(port)}"
         self._coordinator = coordinator
@@ -147,6 +154,10 @@ class FleetDecodeServer:
         self._obs_errors = obs_stats.counter("fleet.stream_errors")
         self._obs_swaps = obs_stats.counter("fleet.swaps")
         self._obs_queue = obs_stats.gauge("fleet.queue_depth")
+        self._obs_transform = obs_stats.histogram("fleet.transform_s")
+        self._obs_swap_s = obs_stats.histogram("fleet.swap_s")
+        self.swaps: "collections.deque[tuple[int, float]]" = \
+            collections.deque(maxlen=SWAPS_KEPT)
         self._grpc: grpc.Server | None = None
         self.port = 0
         self.address = ""
@@ -185,6 +196,8 @@ class FleetDecodeServer:
         if self._grpc is not None:
             self._grpc.stop(grace).wait()
         self._decode_thread.join(timeout=5.0)
+        if self._follower is not None:
+            self._follower.stop()
         if self._member_thread is not None:
             self._member_thread.join(timeout=5.0)
         if self._client is not None:
@@ -369,10 +382,15 @@ class FleetDecodeServer:
                 box_ok(box)  # already serving it
             else:
                 try:
+                    t0 = time.perf_counter()
                     fresh = (self._transform(store) if self._transform
                              else store)
+                    t1 = time.perf_counter()
                     with _DISPATCH_LOCK:
                         self.server.swap_params(fresh, version=version)
+                    self._obs_transform.observe(t1 - t0)
+                    self._obs_swap_s.observe(time.perf_counter() - t1)
+                    self.swaps.append((version, time.time()))
                     self._obs_swaps.add()
                     box_ok(box)
                 except Exception as exc:  # noqa: BLE001 — serving
@@ -381,6 +399,14 @@ class FleetDecodeServer:
                     log.warning("swap to version %d failed (%s); "
                                 "keeping last-good", version, exc)
                     box_fail(box, str(exc))
+
+    def _poll_feed(self) -> None:
+        """Publish the follower's newest version, if one landed."""
+        if self._follower is None:
+            return
+        fresh = self._follower.poll()
+        if fresh is not None:
+            self.publish_version(*fresh)
 
     def _admit_between_rounds(self) -> None:
         """Admit queued streams into free slots between rounds; a
@@ -436,6 +462,7 @@ class FleetDecodeServer:
 
     def _decode_loop(self) -> None:
         while not self._stopped.is_set():
+            self._poll_feed()
             self._apply_commands()
             self._reap_cancelled()
             self._admit_between_rounds()
@@ -507,8 +534,11 @@ class FleetDecodeServer:
                     prefix_fp=self.prefix_fingerprint()), timeout=5.0)
                 if not resp.success:
                     # reaped after a stall: the row is the router's only
-                    # view of this server, so register again
-                    self._register()
+                    # view of this server, so register again; unless it
+                    # is draining, when the answer is its own leave,
+                    # landed while this beat was in flight
+                    if not (self._draining or self._left.is_set()):
+                        self._register()
                 elif (int(resp.self_state) == emsg.MEMBER_DRAINING
                         and not self._draining):
                     log.warning("decode server %d: coordinator drain",

@@ -6,11 +6,23 @@ so a client cannot tell it from a single decode server.
 
 Admission: each ``SubmitStream`` goes to the best ACTIVE backend of the
 coordinator's fleet table (polled over ``UpdateFleet`` at most every
-``poll_s``) by :func:`score_backends`: free slots, less the claims the
-router made since its last poll (so a burst between polls spreads),
-plus ``overlap_weight`` for each leading prompt block in the
-backend's radix prefix fingerprint; then the shorter queue, then the
-server id.  The stream is then pinned: every chunk of its life relays
+``poll_s``) by :func:`score_backends`: free slots, less the router's
+claims the table cannot show yet, plus ``overlap_weight`` for each
+leading prompt block in the backend's radix prefix fingerprint; then
+the shorter queue, then the server id.  A claim is one routed stream.
+It counts until a heartbeat newer than the backend's admission of the
+stream is in the table: the backend admitted it when its first chunk
+came back, it heartbeats every ``heartbeat_s`` (the decode servers'
+period), so a table asked for 1.5 ``heartbeat_s`` after that first
+chunk holds it.  A stream that ends takes its claim with it and leaves
+a credit, a slot the table may still show taken, until a table asked
+for 1.5 ``heartbeat_s`` after its end; a backend's free slots plus its
+credits never pass its slots.  A burst thus spreads whether or not a
+poll lands inside it, and a burst right after another is placed by the
+slots free now, not by the last burst's heartbeats.  (The JAX
+package's router clears its claims at every poll, so a poll mid-burst
+on a table a heartbeat old stacks the rest of the burst on one
+backend.)  The stream is then pinned: every chunk of its life relays
 from that backend, so a rolling weight update swaps the version under
 it and never re-routes a continuation.  DRAINING backends take no new
 streams but keep their pinned ones; a backend lost mid-stream becomes
@@ -66,10 +78,12 @@ class FleetRouter:
 
     def __init__(self, coordinator: str, *, port: int = 0,
                  bind_address: str = "127.0.0.1",
-                 poll_s: float = 0.5, overlap_weight: float = 1.0):
+                 poll_s: float = 0.5, overlap_weight: float = 1.0,
+                 heartbeat_s: float = 0.5):
         self._coordinator = coordinator
         self._bind = f"{bind_address}:{int(port)}"
         self._poll_s = float(poll_s)
+        self._heartbeat_s = float(heartbeat_s)
         # free-slot equivalents one reusable prefix block is worth in the
         # score: cache affinity outbids at most weight * blocks free
         # slots, so a backend with a hot prefix and a long queue still
@@ -85,8 +99,14 @@ class FleetRouter:
         self._polling = False
         self._entries: list = []
         self._table_at = 0.0
+        # when the poll that brought the table was sent
+        self._table_asked = 0.0
         self._epoch = 0
-        self._claims: dict[int, int] = {}
+        # the claims: [server id, the time from which a table asked for
+        # holds the stream (inf until its first chunk), ended]; an ended
+        # one is a credit until a table asked for from its time holds the
+        # end
+        self._claims: list[list] = []
         self._clients: dict[str, RpcClient] = {}
         self.streams_routed = 0
         self.streams_rejected = 0
@@ -134,6 +154,7 @@ class FleetRouter:
             if (fresh and not force) or self._polling:
                 return
             self._polling = True
+        asked = time.monotonic()
         try:
             resp = self._coord.call(
                 "UpdateFleet",
@@ -151,33 +172,72 @@ class FleetRouter:
             self._entries = list(resp.entries)
             self._epoch = int(resp.epoch)
             self._table_at = time.monotonic()
-            self._claims.clear()  # the table now reflects past claims
+            self._table_asked = asked
             self._obs_backends.set(sum(
                 1 for e in self._entries
                 if int(e.state) == fmsg.MEMBER_ACTIVE))
 
+    def _claims_locked(self) -> dict[int, int]:
+        """Per backend, the claims the table does not show yet less the
+        credits it does not show yet, the credits only up to the slots
+        the table shows taken: a credit frees a slot the table holds,
+        never cancels a new claim (caller holds _lock).  Claims and
+        credits the table shows are dropped."""
+        self._claims = [c for c in self._claims
+                        if self._table_asked < c[1]]
+        claims: dict[int, int] = {}
+        credits: dict[int, int] = {}
+        for sid, _shown_from, ended in self._claims:
+            count = credits if ended else claims
+            count[sid] = count.get(sid, 0) + 1
+        taken = {int(e.server_id): int(e.slots) - int(e.free_slots)
+                 for e in self._entries}
+        for sid, n in credits.items():
+            claims[sid] = claims.get(sid, 0) - min(n, taken.get(sid, 0))
+        return claims
+
+    def _shown_from(self) -> float:
+        """When a table asked for from now holds what a backend has now."""
+        return time.monotonic() + 1.5 * self._heartbeat_s
+
+    def _admitted(self, claim: list) -> None:
+        """The backend admitted the claim's stream (its first chunk)."""
+        with self._lock:
+            claim[1] = self._shown_from()
+
+    def _release(self, claim: list) -> None:
+        """The claim's stream ended: its claim becomes a credit (again in
+        the list if the table had shown the stream)."""
+        with self._lock:
+            claim[1] = self._shown_from()
+            claim[2] = True
+            if not any(c is claim for c in self._claims):
+                self._claims.append(claim)
+
     def _pick_backend(self, prompt_tokens=None):
-        """The best backend entry, or None.  Debits a claim on it.  An
-        empty table is polled again for up to 2 s before the stream is
-        rejected: a cold router's second admission must not bounce
-        because the first one's poll has not landed."""
+        """(The best backend entry, its claim), or (None, None).  The
+        claim counts against the backend until the table shows the
+        stream or :meth:`_release` takes it.  An empty table is polled
+        again for up to 2 s before the stream is rejected: a cold
+        router's second admission must not bounce because the first
+        one's poll has not landed."""
         hashes = block_hashes(prompt_tokens) if prompt_tokens else None
         self._refresh_table()
         deadline = time.monotonic() + 2.0
         while True:
             with self._lock:
-                ranked = score_backends(self._entries, self._claims,
+                ranked = score_backends(self._entries, self._claims_locked(),
                                         hashes, self._overlap_weight)
                 if ranked:
                     best = ranked[0]
-                    sid = int(best.server_id)
-                    self._claims[sid] = self._claims.get(sid, 0) + 1
+                    claim = [int(best.server_id), float("inf"), False]
+                    self._claims.append(claim)
                     if hashes:
                         self._obs_overlap.set(overlap_blocks(
                             hashes, unpack_fp(bytes(best.prefix_fp))))
-                    return best
+                    return best, claim
             if time.monotonic() >= deadline:
-                return None
+                return None, None
             time.sleep(0.05)
             self._refresh_table(force=True)
 
@@ -197,7 +257,7 @@ class FleetRouter:
 
     # ---------------------------------------------------------------- gRPC
     def SubmitStream(self, request: fmsg.DecodeRequest, context):
-        backend = self._pick_backend([int(t) for t in request.tokens])
+        backend, claim = self._pick_backend([int(t) for t in request.tokens])
         if backend is None:
             self._reject()
             yield fmsg.DecodeChunk(error="no decode servers available",
@@ -210,8 +270,12 @@ class FleetRouter:
         client = self._backend_client(backend.address)
         try:
             # pinned for the stream's life, swaps under it included
+            first = True
             for chunk in client.call("SubmitStream", request,
                                      timeout=None):
+                if first:
+                    self._admitted(claim)
+                    first = False
                 yield chunk
                 if chunk.done:
                     return
@@ -222,6 +286,8 @@ class FleetRouter:
             yield fmsg.DecodeChunk(
                 error=f"backend {sid} lost mid-stream "
                       f"({_status_code(exc)})", done=True)
+        finally:
+            self._release(claim)
 
     def Control(self, request: fmsg.DecodeControlRequest,
                 context) -> fmsg.DecodeControlResponse:

@@ -332,35 +332,44 @@ class PrefixTree:
 
     def _refingerprint(self) -> None:
         """Rebuild the fingerprint snapshot: chained CRC32 of every
-        root-to-position path at block boundaries, breadth-first so the
-        shallow (shared-system-prompt) blocks survive the cap."""
+        root-to-position path at block boundaries, block-major: block k
+        of every cached path before block k + 1 of any, so under the cap
+        every prefix keeps its shallow blocks, however long the prompts
+        cached beside it.  (The JAX package's tree takes each node's
+        whole edge at once, so a tree that cached long prompts first can
+        fill the cap with their deep blocks and advertise nothing of a
+        shorter prefix.)"""
         block = fp_block()
         cap = fp_max()
         hashes: list[int] = []
         seen: set[int] = set()
-        # BFS over (node, crc at parent boundary, tokens into parent)
-        queue: list[tuple[RadixNode, int, int]] = [
+        # cursors at a block boundary: (node, tokens of its edge folded,
+        # crc so far); each level folds one more block on every path,
+        # forking where a path branches
+        level: list[tuple[RadixNode, int, int]] = [
             (c, 0, 0) for c in self.root.children.values()]
-        while queue and len(hashes) < cap:
+        while level and len(hashes) < cap:
             nxt: list[tuple[RadixNode, int, int]] = []
-            for node, crc, pos in queue:
-                # pos/crc are at the node's parent boundary; fold this
-                # edge, emitting at block boundaries
-                for t in node.edge:
-                    crc = zlib.crc32(
-                        int(t).to_bytes(4, "little", signed=True), crc)
-                    pos += 1
-                    if pos % block == 0:
-                        h = crc & 0xFFFFFFFF
-                        if h not in seen:
-                            seen.add(h)
-                            hashes.append(h)
-                            if len(hashes) >= cap:
-                                break
-                else:
-                    nxt.extend((c, crc, pos)
-                               for c in node.children.values())
-                    continue
-                break
-            queue = nxt
+            for start in level:
+                stack = [(*start, 0)]
+                while stack and len(hashes) < cap:
+                    node, off, crc, k = stack.pop()
+                    edge = node.edge
+                    while k < block and off < len(edge):
+                        crc = zlib.crc32(int(edge[off]).to_bytes(
+                            4, "little", signed=True), crc)
+                        off += 1
+                        k += 1
+                    if k < block:
+                        # the edge ended inside the block: go on into
+                        # every child (a leaf ends the path)
+                        stack.extend((c, 0, crc, k) for c in
+                                     reversed(list(node.children.values())))
+                        continue
+                    h = crc & 0xFFFFFFFF
+                    if h not in seen:
+                        seen.add(h)
+                        hashes.append(h)
+                    nxt.append((node, off, crc))
+            level = nxt
         self.fingerprint = pack_fp(hashes)

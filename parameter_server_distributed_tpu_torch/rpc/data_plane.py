@@ -39,7 +39,13 @@ numpy, or, for a core whose close runs on its device
 (``ParameterServerCore.device_fold``), onto that device with the
 dequantize there (core/device_apply.py).
 
-Not ported: versioned delta serving (ROADMAP.md Queue 1, item 12).
+Versioned deltas (delta/): :meth:`PSClient.delta_pull` and
+:meth:`PSClient.delta_push_pull` name the store version the connection
+holds and apply the delta chain the PS answers in place to the cached
+pull, bit for bit a full pull.  UNIMPLEMENTED (a reference PS, or one at
+``PSDT_DELTA_DEPTH=0``) and a base that fails its checksum each latch
+the connection to the full-serve protocol for good; a same-host
+connection prefers its rings to deltas.
 """
 
 from __future__ import annotations
@@ -51,6 +57,10 @@ from typing import Iterable, Iterator, Sequence
 
 import grpc
 
+from ..delta.client import (DeltaBaseMismatch, DeltaPullState,
+                            DeltaRoundResult, apply_frames)
+from ..delta.messages import (DELTA_PS_METHODS, DeltaPullRequest,
+                              DeltaPushChunk, delta_enabled)
 from ..obs import stats as obs_stats
 from . import messages as m
 from . import shm_transport
@@ -214,6 +224,7 @@ class PSClient(RpcClient):
         methods = dict(methods or m.PARAMETER_SERVER_METHODS)
         methods.update(m.PARAMETER_SERVER_STREAM_METHODS)
         methods.update(shm_transport.SHM_METHODS)
+        methods.update(DELTA_PS_METHODS)
         super().__init__(target, service, methods)
         self.chunk_bytes = (stream_chunk_bytes() if chunk_bytes is None
                             else chunk_bytes)
@@ -226,6 +237,13 @@ class PSClient(RpcClient):
         # good (refused, UNIMPLEMENTED, attach failure, transport error)
         self._shm_conn: shm_transport.ShmClientConnection | None = None
         self._shm_ok: bool | None = None
+        # the cached pull deltas patch, and the same tri-state latch:
+        # None = untried, False = full serves for good (UNIMPLEMENTED, a
+        # checksum or version-bookkeeping failure)
+        self._delta_state = DeltaPullState()
+        self._delta_ok: bool | None = None
+        self._obs_delta_rounds = obs_stats.counter("rpc.client.delta.rounds")
+        self._obs_delta_bytes = obs_stats.counter("rpc.client.delta.bytes")
 
     def _streaming(self) -> bool:
         return self.chunk_bytes > 0 and self._stream_ok is not False
@@ -292,6 +310,113 @@ class PSClient(RpcClient):
         log.info("shm transport active to %s (ring %d MB x2)", self._target,
                  int(resp.ring_bytes) >> 20)
         return self._shm_conn
+
+    # ------------------------------------------------------------------ delta
+    def _delta(self) -> bool:
+        """Whether to try the delta protocol on this connection;
+        ``PSDT_DELTA_DEPTH`` is read each round."""
+        return (self.chunk_bytes > 0 and self._delta_ok is not False
+                and delta_enabled())
+
+    @property
+    def held_version(self) -> int:
+        """The store version of the cached pull deltas patch (-1 =
+        none)."""
+        return self._delta_state.version
+
+    def _delta_downgrade(self, reason: str) -> None:
+        """Full serves for good on this connection; the base may be
+        partly patched after a failed apply, so it is dropped."""
+        self._delta_ok = False
+        self._delta_state.invalidate()
+        log.warning("delta serving downgraded for %s: %s", self._target,
+                    reason)
+
+    def _delta_result(self, frames) -> DeltaRoundResult | None:
+        """Fold a DeltaFrame stream; None = the caller replays the round
+        on the plain protocol (the PS's per-(worker, tensor) dedup makes
+        replaying a push that landed exact)."""
+        try:
+            result = apply_frames(frames, self._delta_state)
+        except DeltaBaseMismatch as exc:
+            self._delta_downgrade(f"base mismatch: {exc}")
+            return None
+        self._delta_ok = True
+        self._obs_delta_rounds.add()
+        if result.served_delta:
+            self._obs_delta_bytes.add(result.wire_bytes)
+        return result
+
+    def delta_pull(self, request: m.PullRequest,
+                   timeout: float | None = None
+                   ) -> DeltaRoundResult | None:
+        """The version-aware pull (``PullParametersDelta``): names the held
+        version and applies a served chain in place (``result.store`` is
+        the whole fresh store either way).  None = use the plain pull
+        (deltas off, or this connection downgraded)."""
+        if not self._delta():
+            return None
+        req = DeltaPullRequest(worker_id=request.worker_id,
+                               iteration=request.iteration,
+                               wire_dtype=request.wire_dtype,
+                               held_version=max(self.held_version, 0))
+        try:
+            frames = self.call("PullParametersDelta", req, timeout=timeout)
+            return self._delta_result(frames)
+        except grpc.RpcError as exc:
+            if _status_code(exc) == grpc.StatusCode.UNIMPLEMENTED:
+                self._delta_downgrade("UNIMPLEMENTED")
+                return None
+            raise
+
+    def delta_push_pull(self, worker_id: int, iteration: int, tensors_fn,
+                        pull_wire_dtype: int = 0,
+                        timeout: float | None = None
+                        ) -> DeltaRoundResult | None:
+        """The version-aware fused round (``PushPullDeltaStream``): the
+        fused chunk stream with the held version, the answer a delta
+        chain applied in place or a stamped full serve.  None = run the
+        plain fused round: deltas off or downgraded, or the connection
+        prefers the same-host rings (they speak PushPullStream, and on
+        one host zero copies beat the byte savings)."""
+        if not self._delta():
+            return None
+        if shm_transport.enabled() and self._shm_ok is not False:
+            return None
+        held = max(self.held_version, 0)
+
+        def chunks() -> Iterator[DeltaPushChunk]:
+            # held_version and pull_wire_dtype ride the first chunk; an
+            # empty push still sends one empty chunk
+            first = True
+            for group in split_tensors(tensors_fn(), self.chunk_bytes):
+                yield DeltaPushChunk(
+                    update=m.GradientUpdate(
+                        worker_id=worker_id, iteration=iteration,
+                        gradients=group,
+                        pull_wire_dtype=pull_wire_dtype if first else 0),
+                    held_version=held if first else 0)
+                first = False
+            if first:
+                yield DeltaPushChunk(
+                    update=m.GradientUpdate(worker_id=worker_id,
+                                            iteration=iteration,
+                                            gradients=[],
+                                            pull_wire_dtype=pull_wire_dtype),
+                    held_version=held)
+
+        try:
+            frames = self.call("PushPullDeltaStream", chunks(),
+                               timeout=timeout)
+            result = self._delta_result(frames)
+        except grpc.RpcError as exc:
+            if _status_code(exc) == grpc.StatusCode.UNIMPLEMENTED:
+                self._delta_downgrade("UNIMPLEMENTED")
+                return None
+            raise
+        if result is not None:
+            self._fused_ok = True   # the server speaks the fused family
+        return result
 
     # ------------------------------------------------------------------ push
     def push_gradients(self, update: m.GradientUpdate,

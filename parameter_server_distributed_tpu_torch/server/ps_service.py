@@ -26,21 +26,34 @@ epoch (:class:`_EpochSaver`).
   worker on this host two shared-memory rings and a thread that runs
   each of its fused rounds through the same ``PushPullStream`` handler,
   so bytes and semantics do not depend on the transport.
+- **Versioned deltas and live publication** (delta/): a ``DeltaChain``
+  diffs consecutive store versions after every apply (the core's delta
+  sink, armed on the first request that can take a delta), and
+  :class:`EncodedDeltaCache` replays each pair's encoded frames to every
+  receiver.  ``PullParametersDelta`` and ``PushPullDeltaStream`` answer
+  a receiver that names its held version with the pairs since then, or
+  a version-stamped full serve; ``SubscribeWeights`` streams every new
+  version to a subscriber (delta/subscriber.py ``WeightFollower``)
+  until it cancels.
 
 Registered: ``ReceiveGradients``, ``ServeParameters``, ``CheckSyncStatus``,
 ``SaveCheckpoint``, ``LoadCheckpoint``, the streams
 ``PushGradientsStream``, ``ServeParametersStream`` and ``PushPullStream``,
-and ``NegotiateShm``.  Not registered, so answered UNIMPLEMENTED: the
-delta RPCs and ``SubscribeWeights`` (ROADMAP.md Queue 1, item 12), and
-the replication and sharded-update RPCs (item 13).  The JAX package's
-clients fall back on each of them by themselves.
+``NegotiateShm``, and, unless ``PSDT_DELTA_DEPTH=0``, the delta RPCs and
+``SubscribeWeights``.  Not registered, so answered UNIMPLEMENTED: the
+replication and sharded-update RPCs (ROADMAP.md Queue 1, item 13), and
+the delta RPCs at ``PSDT_DELTA_DEPTH=0``.  The JAX package's clients
+fall back on each of them by themselves.
 
 Timings land in the port's obs registry: ``ps.apply_s`` (fold commit and
 apply, net of RPC plumbing), ``ps.serve_s``, ``ps.barrier_wait_s`` (how
 long fused handlers park on the barrier), the cache's
 ``ps.serve.cache_hit`` / ``ps.serve.cache_miss`` and ``ps.serve.encode_s``
-(one encode of the store, the part of a serve that is not transfer); the
-core adds ``ps.barrier_close_s``.
+(one encode of the store, the part of a serve that is not transfer), the
+delta plane's ``ps.serve.delta_hit`` / ``ps.serve.delta_miss`` /
+``ps.serve.delta_bytes`` and ``ps.publish.refused`` (subscribers turned
+away at ``PSDT_MAX_SUBSCRIBERS``); the chain adds
+``ps.serve.delta_build_ms``, and the core ``ps.barrier_close_s``.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import os
 import queue
 import threading
 import time
+from collections import OrderedDict
 
 import grpc
 import torch
@@ -59,6 +73,8 @@ from ..config import ParameterServerConfig
 from ..core.optimizer import make_optimizer
 from ..core.ps_core import ParameterServerCore, PushSink
 from ..core.tensor import to_wire
+from ..delta import messages as dmsg
+from ..delta.chain import DeltaChain, DeltaPair, wire_dtype_compatible
 from ..device import resolve_device
 from ..obs import stats as obs_stats
 from ..rpc import messages as m
@@ -137,6 +153,62 @@ class EncodedServeCache:
         entry.event.set()
 
 
+class EncodedDeltaCache:
+    """The delta tier of the encode-once cache: DeltaFrame bytes keyed by
+    ``(from_version, to_version, chunk budget)``, one encode a pair,
+    replayed to every receiver crossing that hop (the post-barrier
+    fan-out and every subscriber).  Store versions are never reused in a
+    process, so a key is never stale; the bounded LRU ages entries out.
+    No single-flight wait: repacking an already diffed pair is cheap
+    enough that a racing duplicate beats parking a handler thread."""
+
+    CAPACITY = 32
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._frames: "OrderedDict[tuple, list[bytes]]" = OrderedDict()
+
+    def get(self, pair: DeltaPair, wire_dtype: int,
+            budget: int) -> list[bytes]:
+        key = (pair.from_version, pair.to_version, budget)
+        with self._lock:
+            hit = self._frames.get(key)
+            if hit is not None:
+                self._frames.move_to_end(key)
+                return hit
+        bodies = [frame.encode()
+                  for frame in _pair_frames(pair, wire_dtype, budget)]
+        with self._lock:
+            self._frames[key] = bodies
+            while len(self._frames) > self.CAPACITY:
+                self._frames.popitem(last=False)
+        return bodies
+
+
+def _pair_frames(pair: DeltaPair, wire_dtype: int, budget: int):
+    """One delta pair -> its DeltaFrames: entries packed greedily to about
+    ``budget`` payload bytes a frame, the last frame stamped with the
+    pair's store checksum and ``last=True`` (a receiver applies a pair
+    only once it has all of it, delta/client.py)."""
+    def make(entries, last: bool) -> dmsg.DeltaFrame:
+        return dmsg.DeltaFrame(
+            from_version=pair.from_version, to_version=pair.to_version,
+            delta=True, wire_dtype=wire_dtype, entries=entries,
+            crc=pair.crc if last else 0, last=last)
+
+    batch: list[dmsg.DeltaEntry] = []
+    size = 0
+    for name, idx_bytes, value_bytes, dense in pair.entries:
+        nbytes = len(idx_bytes) + len(value_bytes)
+        if batch and size + nbytes > budget:
+            yield make(batch, last=False)
+            batch, size = [], 0
+        batch.append(dmsg.DeltaEntry(name=name, indices=idx_bytes,
+                                     values=value_bytes, dense=dense))
+        size += nbytes
+    yield make(batch, last=True)
+
+
 def _numel(value) -> int:
     return value.numel() if isinstance(value, torch.Tensor) else value.size
 
@@ -159,6 +231,24 @@ class ParameterServerService:
         self._obs_cache_hit = obs_stats.counter("ps.serve.cache_hit")
         self._obs_cache_miss = obs_stats.counter("ps.serve.cache_miss")
         self._obs_encode = obs_stats.histogram("ps.serve.encode_s")
+        # the delta plane: None at PSDT_DELTA_DEPTH=0.  The chain becomes
+        # the core's sink lazily, on the first request that can take a
+        # delta (_arm_delta): until a receiver exists, the O(model)
+        # encode, diff and crc at every close would buy nothing
+        self.delta_chain: DeltaChain | None = (
+            DeltaChain(stripes=core.stripes) if dmsg.delta_enabled()
+            else None)
+        self._delta_armed = False
+        self._delta_cache = EncodedDeltaCache()
+        # live subscriptions, bounded (each parks one handler thread)
+        self._active_subscribers = 0
+        self._sub_lock = threading.Lock()
+        # set when the server stops: parked subscriptions return
+        self._closing = threading.Event()
+        self._obs_delta_hit = obs_stats.counter("ps.serve.delta_hit")
+        self._obs_delta_miss = obs_stats.counter("ps.serve.delta_miss")
+        self._obs_delta_bytes = obs_stats.counter("ps.serve.delta_bytes")
+        self._obs_sub_refused = obs_stats.counter("ps.publish.refused")
 
     def _apply(self, worker_id: int, iteration: int, grads):
         t0 = time.perf_counter()
@@ -230,22 +320,30 @@ class ParameterServerService:
         return (self.core.serve_version(), eff, budget)
 
     def _wait_for_builder(self, entry: _ServeCacheEntry,
-                          key: tuple) -> tuple[list[bytes], bool]:
-        """Non-builder path: (bodies, cached).  Replays the builder's
-        bytes, or encodes the live store itself if the builder failed or
-        stalled."""
+                          key: tuple) -> tuple[list[bytes], bool, int]:
+        """Non-builder path: (bodies, cached, version).  Replays the
+        builder's bytes, or encodes the live store itself if the builder
+        failed or stalled."""
         if entry.event.wait(self._cache_build_wait_s()) and not entry.failed:
             self._obs_cache_hit.add()
-            return entry.bodies, True
+            return entry.bodies, True, entry.version
         self._obs_cache_miss.add()
-        bodies, _version = self._encode_chunk_bodies(0, key[1], key[2])
-        return bodies, False
+        bodies, version = self._encode_chunk_bodies(0, key[1], key[2])
+        return bodies, False, version
 
     def _encoded_parameter_chunks(self, request_iteration: int,
                                   wire_dtype: int) -> list[bytes]:
-        """The encoded chunk bodies through the encode-once cache.  A
-        waiter woken from a builder re-probes the version (the store may
-        have moved meanwhile), a few times at most."""
+        return self._encoded_chunks_versioned(request_iteration,
+                                              wire_dtype)[0]
+
+    def _encoded_chunks_versioned(self, request_iteration: int,
+                                  wire_dtype: int
+                                  ) -> tuple[list[bytes], int]:
+        """The encoded chunk bodies through the encode-once cache, and the
+        store version they were encoded at (the delta protocol stamps it
+        as the receiver's base, so it labels the bytes, not the probe).
+        A waiter woken from a builder re-probes the version (the store
+        may have moved meanwhile), a few times at most."""
         for _ in range(3):
             key = self._serve_key(wire_dtype)
             entry, builder = self._serve_cache.lookup(key)
@@ -258,11 +356,11 @@ class ParameterServerService:
                     self._serve_cache.fail(key, entry)
                     raise
                 self._serve_cache.fill(key, entry, bodies, version)
-                return bodies
-            bodies, cached = self._wait_for_builder(entry, key)
+                return bodies, version
+            bodies, cached, version = self._wait_for_builder(entry, key)
             if not cached or self.core.serve_version() == key[0]:
-                return bodies
-        return bodies
+                return bodies, version
+        return bodies, version
 
     def ServeParameters(self, request: m.PullRequest, context):
         t0 = time.perf_counter()
@@ -371,6 +469,206 @@ class ParameterServerService:
         for chunk in self._parameter_chunks(iteration, pull_wire_dtype):
             yield m.PushPullResponse(params=chunk)
         self._obs_serve.observe(time.perf_counter() - t0)
+
+    # ------------------------------------------------------------ delta serve
+    def _arm_delta(self) -> None:
+        """Make the chain the core's delta sink, once, on the first
+        request that can take a delta.  Armed without a seed: traffic
+        flows by now, and a snapshot outside the apply serialization
+        could tear against an apply; the next apply reseeds the chain
+        (one more full serve, never a wrong base).  A double arm installs
+        the same sink twice, harmlessly."""
+        if self._delta_armed or self.delta_chain is None:
+            return
+        self._delta_armed = True
+        self.core.set_delta_sink(self.delta_chain, seed=False)
+        log.info("delta chain armed: applies now build version pairs")
+
+    def _delta_serve(self, held_version: int, wire_dtype: int,
+                     request_iteration: int) -> tuple[list, int]:
+        """The frames answering a receiver that holds ``held_version``,
+        and the version they end at: the encoded pairs since then when
+        the receiver is within the depth and its encoding matches the
+        chain's, else a version-stamped full serve (no base, past the
+        depth, across a restore, another encoding)."""
+        held = int(held_version)
+        eff = self._serve_wire_dtype(wire_dtype)
+        budget = stream_chunk_bytes() or (32 << 20)
+        chain = self.delta_chain
+        current = self.core.serve_version()
+        pairs = None
+        if (chain is not None
+                and wire_dtype_compatible(eff, chain.wire_dtype)):
+            self._arm_delta()   # a receiver that can take deltas exists
+            if held > 0:
+                # the close publishes its store before the chain notes
+                # it: a serve in between waits for the pair
+                chain.wait_built(current, self._cache_build_wait_s())
+                pairs = chain.pairs_between(held, current)
+        if pairs is not None:
+            frames: list = []
+            nbytes = 0
+            for pair in pairs:
+                for body in self._delta_cache.get(pair, chain.wire_dtype,
+                                                  budget):
+                    frames.append(dmsg.EncodedDeltaFrame(body))
+                    nbytes += len(body)
+            self._obs_delta_hit.add()
+            self._obs_delta_bytes.add(nbytes)
+            return frames, pairs[-1].to_version
+        self._obs_delta_miss.add()
+        # the label is read before the bodies (see ServeParameters)
+        iteration = self.core.current_iteration
+        bodies, version = self._encoded_chunks_versioned(request_iteration,
+                                                         wire_dtype)
+        if not bodies:   # an empty store still answers one (empty) chunk
+            return [dmsg.DeltaFrame(
+                params=PreEncodedParameterUpdate(iteration, True, ()),
+                to_version=version, last=True)], version
+        return [dmsg.DeltaFrame(
+                    params=PreEncodedParameterUpdate(iteration, True,
+                                                     (body,)),
+                    to_version=version, last=(i == len(bodies) - 1))
+                for i, body in enumerate(bodies)], version
+
+    # RPC (extension, delta/): the version-aware pull
+    def PullParametersDelta(self, request: dmsg.DeltaPullRequest, context):
+        t0 = time.perf_counter()
+        frames, _ = self._delta_serve(request.held_version,
+                                      request.wire_dtype, request.iteration)
+        self._obs_serve.observe(time.perf_counter() - t0)
+        yield from frames
+
+    # RPC (extension, delta/): the version-aware fused round, as
+    # PushPullStream, its answer DeltaFrames (a delta chain for a
+    # receiver within the depth)
+    def PushPullDeltaStream(self, request_iterator, context):
+        empty_store = not self.core.has_parameters
+        sink: PushSink | None = None
+        pull_wire_dtype = 0
+        held_version = 0
+        for dchunk in request_iterator:
+            chunk = dchunk.update
+            if chunk is None:
+                continue
+            if empty_store and chunk.gradients:
+                # PushPullStream's bootstrap refusal, as a frame
+                yield dmsg.DeltaFrame(push=m.PushResponse(
+                    success=False,
+                    message="parameter store empty: fused push refused "
+                            "(re-pull and seed init via the push path)",
+                    iteration=self.core.current_iteration))
+                return
+            if sink is None:
+                sink = self.core.begin_push(chunk.worker_id, chunk.iteration)
+                pull_wire_dtype = chunk.pull_wire_dtype
+                held_version = int(dchunk.held_version)
+            if chunk.gradients:
+                sink.fold(decode_gradients(chunk.gradients,
+                                           self.core.device_fold()))
+        if sink is None:
+            yield dmsg.DeltaFrame(push=m.PushResponse(
+                success=False, message="empty push stream"))
+            return
+        worker_id, iteration = sink.worker_id, sink.iteration
+        result = self._commit(sink)
+        yield dmsg.DeltaFrame(push=self._push_result_response(result))
+        if not result.success:
+            return
+        if not result.aggregation_complete:
+            t0 = time.perf_counter()
+            ready, received, total = self.core.wait_for_aggregation(
+                iteration, timeout=self._fused_barrier_timeout_s())
+            self._obs_barrier.observe(time.perf_counter() - t0)
+            if not ready:
+                log.warning(
+                    "PushPullDeltaStream: barrier timeout at iteration %d "
+                    "(%d/%d received); worker %d falls back to polling",
+                    iteration, received, total, worker_id)
+                yield dmsg.DeltaFrame(params=m.ParameterUpdate(
+                    iteration=self.core.current_iteration, ready=False))
+                return
+        t0 = time.perf_counter()
+        frames, _ = self._delta_serve(held_version, pull_wire_dtype,
+                                      iteration)
+        self._obs_serve.observe(time.perf_counter() - t0)
+        yield from frames
+
+    # How often a parked subscription re-checks that its client and the
+    # server are still there; a new version wakes it at once.
+    @staticmethod
+    def _subscribe_poll_s() -> float:
+        return float(os.environ.get("PSDT_SUBSCRIBE_POLL_S", "0.5"))
+
+    # The live-subscription bound: each parks one handler thread, and the
+    # server's pool has room for this many beside the data plane, so a
+    # subscriber past it would take the thread of the push that closes a
+    # barrier; it is refused RESOURCE_EXHAUSTED and backs off.
+    @staticmethod
+    def _max_subscribers() -> int:
+        return int(os.environ.get("PSDT_MAX_SUBSCRIBERS", "8"))
+
+    def delta_report(self) -> dict:
+        """The delta plane's state for an exit report: armed or not, and
+        the (version, crc, wall time) of the last versions the chain
+        noted."""
+        chain = self.delta_chain
+        return {"enabled": chain is not None, "armed": self._delta_armed,
+                "published": ([list(p) for p in chain.published]
+                              if chain is not None else [])}
+
+    def close_subscriptions(self) -> None:
+        """Parked subscriptions return at their next wake (server stop)."""
+        self._closing.set()
+
+    # RPC (extension, delta/): live weight publication, a frame batch a
+    # store version from the subscriber's held version on (full first
+    # when it holds nothing or fell behind), until it cancels or the
+    # server stops
+    def SubscribeWeights(self, request: dmsg.SubscribeRequest, context):
+        with self._sub_lock:
+            live = self._active_subscribers
+            admitted = live < self._max_subscribers()
+            if admitted:
+                self._active_subscribers += 1
+        if not admitted:
+            self._obs_sub_refused.add()
+            log.warning("SubscribeWeights refused: %d live subscriptions "
+                        "at PSDT_MAX_SUBSCRIBERS=%d (subscriber %d backs "
+                        "off)", live, self._max_subscribers(),
+                        request.subscriber_id)
+            if context is not None:
+                context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED,
+                              "subscriber limit reached "
+                              f"({self._max_subscribers()}); retry later")
+            return
+        try:
+            held = int(request.held_version)
+            chain = self.delta_chain
+            if chain is not None and wire_dtype_compatible(
+                    self._serve_wire_dtype(request.wire_dtype),
+                    chain.wire_dtype):
+                # a standing delta receiver: build pairs from now on
+                self._arm_delta()
+            while ((context is None or context.is_active())
+                   and not self._closing.is_set()):
+                current = self.core.serve_version()
+                if current > held and self.core.has_parameters:
+                    frames, end = self._delta_serve(held,
+                                                    request.wire_dtype, 0)
+                    yield from frames
+                    if end > held:
+                        held = end
+                        continue
+                    # a serve labelled at or before the held version
+                    # delivered nothing new: park instead of spinning
+                if chain is not None:
+                    chain.wait_for_newer(held, self._subscribe_poll_s())
+                else:
+                    time.sleep(self._subscribe_poll_s())
+        finally:
+            with self._sub_lock:
+                self._active_subscribers -= 1
 
     # RPC (extension, rpc/shm_transport.py): same-host transport
     # negotiation for the fused data plane
@@ -518,13 +816,19 @@ class ParameterServer:
         """Start serving; returns the bound port (0 in config = ephemeral)."""
         # the fused data plane parks one handler thread per
         # barrier-waiting worker, so the pool must exceed the barrier
-        # width or the push that would close it queues behind them
+        # width or the push that would close it queues behind them; each
+        # admitted subscription parks one more between versions
+        delta = self.service.delta_chain is not None
         self._server = make_server(
-            max_workers=max(8, 2 * self.config.total_workers + 8))
+            max_workers=max(8, 2 * self.config.total_workers + 8
+                            + (self.service._max_subscribers() if delta
+                               else 0)))
         bind_service(self._server, m.PARAMETER_SERVER_SERVICE,
                      {**m.PARAMETER_SERVER_METHODS,
                       **m.PARAMETER_SERVER_STREAM_METHODS,
-                      **shm_transport.SHM_METHODS}, self.service)
+                      **shm_transport.SHM_METHODS,
+                      **(dmsg.DELTA_PS_METHODS if delta else {})},
+                     self.service)
         addr = f"{self.config.bind_address}:{self.config.port}"
         port = self._server.add_insecure_port(addr)
         if port == 0:
@@ -550,6 +854,7 @@ class ParameterServer:
         # timeout; then the rings close, which wakes threads parked on a
         # ring or a doorbell
         self.core.release_waiters()
+        self.service.close_subscriptions()
         self.service.shm_server.close()
         if self._server is not None:
             self._server.stop(grace).wait()

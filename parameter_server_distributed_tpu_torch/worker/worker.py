@@ -18,7 +18,11 @@ Protocol behaviour, as the reference's (src/worker.cpp, include/worker.h):
   ``GradientBuckets`` (the trainer's bucketed download), the returned
   parameters are kept for the next iteration's "pull", and the next
   batch prefetches meanwhile.  Against a reference PS every leg falls
-  back to the serial unary protocol (rpc/data_plane.py);
+  back to the serial unary protocol (rpc/data_plane.py).  Pulls and
+  fused rounds are version aware first (delta/): the worker names the
+  store version it holds and the PS answers the changed bytes, applied
+  in place to its cached pull; the connection falls back to the plain
+  protocol by itself;
 - a checkpoint restore request at startup (reference:
   src/worker.cpp:289-314).
 
@@ -39,8 +43,7 @@ and for a bucketed step ``dtoh_ms`` (the copies' device time) and
 ``dtoh_wait_s``.
 
 Not ported: the tier client and error feedback of lossy pushes (ROADMAP.md
-Queue 1, item 10), membership and drain (item 11), delta pulls (item 12),
-the shard-map client and sharded PS fan-out (item 13), flight events and
+Queue 1, item 10), membership and drain (item 11), the shard-map client and sharded PS fan-out (item 13), flight events and
 the heartbeat's metric snapshot (item 14), and the free-running loop
 (item 11).
 """
@@ -265,6 +268,15 @@ class Worker:
                 # f32 conversion per chunk as it arrives
                 local.update(from_wire(tensors))
 
+            # the version-aware pull first: the PS answers the changed
+            # bytes; None = the plain protocol must run
+            result = self._ps.delta_pull(
+                m.PullRequest(worker_id=self.config.worker_id,
+                              iteration=iteration,
+                              wire_dtype=self._pull_wire_dtype()),
+                timeout=30.0)
+            if result is not None and result.store is not None:
+                return result.update, result.store
             resp = self._ps.pull_parameters(
                 m.PullRequest(worker_id=self.config.worker_id,
                               iteration=iteration,
@@ -273,6 +285,10 @@ class Worker:
             return resp, local
 
         resp, store = self.query_with_retry(attempt)
+        if resp is None:
+            # a delta-served pull carries no wire tensors: the packed
+            # negotiation stands
+            return iteration, store
         self._note_pull_tensors(resp.parameters)
         return (resp.iteration if resp.iteration else iteration), store
 
@@ -344,6 +360,20 @@ class Worker:
         tensors_fn = self._wire_tensors(grads)
 
         def attempt():
+            # the version-aware fused round first; None = the plain one
+            # (deltas off or downgraded, or the rings preferred), and a
+            # mid-round downgrade's replay below is exact (the PS's
+            # per-(worker, tensor) dedup)
+            result = self._ps.delta_push_pull(
+                self.config.worker_id, iteration, tensors_fn,
+                pull_wire_dtype=self._pull_wire_dtype(),
+                timeout=self.config.fused_timeout_s)
+            if result is not None:
+                push = (result.push if result.push is not None
+                        else m.PushResponse(success=False,
+                                            message="empty fused response"))
+                return push, result.update, result.store
+
             local: TensorStore = {}
 
             def convert_chunk(chunk_tensors) -> None:
@@ -363,7 +393,9 @@ class Worker:
             self._time("fused", t0)
         if store is None:
             return push, None
-        self._note_pull_tensors(params.parameters)
+        if params is not None:
+            # a delta-served round carries no wire tensors
+            self._note_pull_tensors(params.parameters)
         return push, store
 
     # ---------------------------------------------------------- batch stream

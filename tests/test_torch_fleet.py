@@ -316,7 +316,7 @@ def test_router_scores_with_its_overlap_weight(weight, first):
         claims: dict[int, int] = {}
         picks, want = [], []
         for _ in range(4):
-            picks.append(int(router._pick_backend(prompt).server_id))
+            picks.append(int(router._pick_backend(prompt)[0].server_id))
             best = int(jrt.score_backends(rows[jfm], claims, hashes,
                                           weight)[0].server_id)
             claims[best] = claims.get(best, 0) + 1
@@ -487,6 +487,94 @@ def test_router_prefers_backend_with_cached_prefix(model):
         assert warm.server.stats["prefix_hits"] == 1
     finally:
         fleet.close()
+
+
+def test_router_keeps_claims_until_a_heartbeat_shows_them(model):
+    """A burst of 4 long streams, 100 ms apart, through a router polling
+    every 10 ms onto two 2-slot servers that heartbeat every 30 s (once,
+    at registration, in this test): every poll lands mid-burst on a
+    table that shows no admission.  The port's router, told the fleet's
+    heartbeat period, keeps its claims until a heartbeat could show them
+    and places 2 and 2; the JAX package's router, beside it on the same
+    fleet, clears them at each poll and stacks the burst on server 0
+    (all four when each admission's poll lands before the next; an
+    admission during a poll routes on the old table and its claims, so
+    a loaded host may see three)."""
+    fleet = _Fleet(model, 2, slots=2, heartbeat_s=30.0, round_delay_s=0.01)
+    try:
+        placements = {}
+        for side, router in (
+                ("port", trt.FleetRouter(fleet.caddr, poll_s=0.01,
+                                         heartbeat_s=30.0)),
+                ("jax", jrt.FleetRouter(fleet.caddr, poll_s=0.01))):
+            client = RpcClient(f"127.0.0.1:{router.start()}",
+                               tfm.DECODE_SERVICE, tfm.DECODE_METHODS)
+            before = [s.streams_served for s in fleet.servers]
+            errors = []
+
+            def drive(i):
+                chunks = list(client.call("SubmitStream", tfm.DecodeRequest(
+                    tokens=[1 + i, 2, 3], max_new=60), timeout=60.0))
+                errors.append(chunks[-1].error)
+
+            threads = [threading.Thread(target=drive, args=(i,),
+                                        daemon=True) for i in range(4)]
+            try:
+                for thread in threads:
+                    thread.start()
+                    time.sleep(0.1)
+                for thread in threads:
+                    thread.join(timeout=60.0)
+                    assert not thread.is_alive()
+            finally:
+                client.close()
+                router.stop()
+            assert errors == [""] * 4
+            placements[side] = [s.streams_served - b
+                                for s, b in zip(fleet.servers, before)]
+        assert placements["port"] == [2, 2], placements
+        assert placements["jax"][0] >= 3, placements
+    finally:
+        fleet.close()
+
+
+def test_router_credits_ended_streams_until_the_table_shows_them():
+    """Two streams that ran on server 0 ended after its last heartbeat,
+    which still shows both slots taken: the port's router counts them
+    free again (a credit each, until a table a heartbeat newer holds the
+    end) and places the next stream there, where the JAX package's
+    score, on the heartbeat alone, sends it to server 1."""
+    rows = {fm: [fm.FleetEntry(server_id=0, address="h:0", slots=2,
+                               free_slots=0, state=fm.MEMBER_ACTIVE),
+                 fm.FleetEntry(server_id=1, address="h:1", slots=2,
+                               free_slots=1, state=fm.MEMBER_ACTIVE)]
+            for fm in (tfm, jfm)}
+    router = trt.FleetRouter("127.0.0.1:1", poll_s=3600.0, heartbeat_s=1.0)
+    try:
+        router._entries = rows[tfm]
+        router._table_at = router._table_asked = time.monotonic()
+        for _ in range(2):
+            _, claim = router._pick_backend()
+            claim[0] = 0                  # both ran on server 0
+            router._admitted(claim)
+            router._release(claim)
+        assert router._claims_locked() == {0: -2}
+        assert int(router._pick_backend()[0].server_id) == 0
+        assert int(jrt.score_backends(rows[jfm], {})[0].server_id) == 1
+        # a table that shows the slots free again: the credits free
+        # nothing more and cancel no new claim, so picks alternate
+        router._entries = [tfm.FleetEntry(
+            server_id=sid, address=f"h:{sid}", slots=2, free_slots=2,
+            state=tfm.MEMBER_ACTIVE) for sid in (0, 1)]
+        assert router._claims_locked() == {0: 1}
+        assert [int(router._pick_backend()[0].server_id)
+                for _ in range(3)] == [1, 0, 1]
+        # a table asked for after the credits' time holds the ends; the
+        # picks' claims stay until their streams are admitted and shown
+        router._table_asked = time.monotonic() + 10.0
+        assert router._claims_locked() == {0: 2, 1: 2}
+    finally:
+        router.stop()
 
 
 def test_empty_fleet_rejects_instead_of_hanging():
@@ -660,11 +748,39 @@ def test_pin_survives_publication_and_drift_is_refused(model):
         server.stop()
 
 
+class _Feed:
+    """A follower stand-in: hands out one queued version per poll."""
+
+    def __init__(self, versions):
+        self.versions = list(versions)
+        self.stopped = False
+
+    def poll(self):
+        return self.versions.pop(0) if self.versions else None
+
+    def stop(self):
+        self.stopped = True
+
+
 def test_follower_refused_naming_its_item(model):
+    """``follower=`` is ported (it was refused naming item 12): the
+    server polls the feed at its round boundaries, swaps each version it
+    delivers and stops the feed with itself."""
     pm, params = model
     srv = DecodeServer(pm, params, slots=1, max_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FleetDecodeServer(srv, follower=object())
+    fresh = {k: v.clone() for k, v in params.items()}
+    feed = _Feed([(fresh, 3)])
+    fds = FleetDecodeServer(srv, follower=feed, heartbeat_s=0.02)
+    fds.start()
+    try:
+        deadline = time.monotonic() + 10
+        while fds.weight_version() != 3:
+            assert time.monotonic() < deadline, "the fed version never swapped"
+            time.sleep(0.02)
+        assert srv.params is fresh and [v for v, _ in fds.swaps] == [3]
+    finally:
+        fds.stop()
+    assert feed.stopped
 
 
 # ------------------------------------------------------------ autoscaler

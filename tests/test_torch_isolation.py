@@ -60,6 +60,13 @@ def test_fleet_and_elastic_modules_are_scanned():
             os.path.join("cli", "ctl_main.py")} <= scanned
 
 
+def test_delta_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("delta", name) for name in (
+        "__init__.py", "messages.py", "chain.py", "client.py",
+        "subscriber.py")} <= scanned
+
+
 def test_name_match_is_whole_name():
     assert _blocked("jax.numpy") and _blocked("parameter_server_distributed_tpu")
     assert not _blocked("parameter_server_distributed_tpu_torch.models")
@@ -176,6 +183,16 @@ def test_port_imports_and_serves_with_jax_blocked():
                     assert client.shm_active
                 finally:
                     client.close()
+                # a weight follower of the PS gets its version
+                from parameter_server_distributed_tpu_torch.delta \
+                    .subscriber import WeightFollower
+                follower = WeightFollower(address).start()
+                try:
+                    got = follower.wait_for_update(timeout=60)
+                    assert got is not None
+                    assert got[1] == server.core.serve_version()
+                finally:
+                    follower.stop()
             finally:
                 server.stop()
         # a decode fleet in process: coordinator, server, router, stream
@@ -214,8 +231,8 @@ def test_port_imports_and_serves_with_jax_blocked():
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served, trained, ran a PS session, a round over shm and "
-              "a fleet stream")
+        print("served, trained, ran a PS session, a round over shm, "
+              "a followed version and a fleet stream")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,

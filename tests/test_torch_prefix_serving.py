@@ -7,7 +7,9 @@ full prefill, interior-prefix reuse, multi-hop extension, the deepest
 ancestor winning, the ancestor-path touch) in both cache dtypes and with
 int8 weights.  After every request the greedy streams must be
 token-exact and the stats (hits, extensions, nodes, bytes, evictions),
-the tree's splits and the prefix fingerprint equal."""
+the tree's splits and the cached blocks equal, and both prefix
+fingerprints advertise those blocks, each package in its own order (the
+port's block-major, tests/test_torch_prefix_tree.py)."""
 
 import dataclasses
 
@@ -21,6 +23,8 @@ from parameter_server_distributed_tpu.models import serving as js
 from parameter_server_distributed_tpu.models import transformer as jt
 from parameter_server_distributed_tpu_torch.models import serving as ts
 from parameter_server_distributed_tpu_torch.models import transformer as tt
+from parameter_server_distributed_tpu_torch.models.prefix_tree import (
+    block_hashes, fp_max, unpack_fp)
 from parameter_server_distributed_tpu_torch.models.convert import \
     params_from_numpy
 
@@ -86,6 +90,41 @@ def _scripts():
     }
 
 
+def tree_blocks(tree) -> dict:
+    """Every block boundary hash of the tree's cached paths -> its block
+    depth (0 = the first block)."""
+    depth: dict = {}
+    stack = [(child, list(child.edge))
+             for child in tree.root.children.values()]
+    while stack:
+        node, path = stack.pop()
+        for i, h in enumerate(block_hashes(path)):
+            depth.setdefault(h, i)
+        stack.extend((c, path + list(c.edge))
+                     for c in node.children.values())
+    return depth
+
+
+def check_fingerprint_orders(blocks: dict, jax_fp: bytes, port_fp: bytes,
+                             cap: int) -> None:
+    """The two packages' fingerprints of one tree: both advertise the
+    tree's blocks (all of them under the cap), the port's block-major
+    (block k of every path before block k + 1 of any, so a capped one
+    holds every shallower block), the JAX package's node by node."""
+    port = [int.from_bytes(port_fp[i:i + 4], "little")
+            for i in range(0, len(port_fp), 4)]
+    jax_ = unpack_fp(jax_fp)
+    depths = [blocks[h] for h in port]
+    assert depths == sorted(depths)
+    assert jax_ <= set(blocks)
+    if len(port) < cap:
+        assert set(port) == set(blocks)
+    else:
+        assert {h for h, d in blocks.items() if d < depths[-1]} <= set(port)
+    if len(jax_) < cap:
+        assert jax_ == set(blocks)
+
+
 def _drive(srv, events):
     """Run the events; after each, the streams so far, the stats, the
     tree's splits and the fingerprint."""
@@ -102,7 +141,7 @@ def _drive(srv, events):
             result = [int(t) for t in srv.run_to_completion()[rid]]
             first_row = first_row or tree.bytes
         trace.append((result, srv.stats, tree.splits,
-                      srv.prefix_fingerprint()))
+                      srv.prefix_fingerprint(), tree_blocks(tree)))
     return trace
 
 
@@ -121,7 +160,10 @@ def test_prefix_cache_matches_jax_server(models, monkeypatch, case,
                            device="cpu")
     want, got = _drive(ref, events), _drive(port, events)
     for step, (w, g) in enumerate(zip(want, got)):
-        assert g == w, (case, step)
+        # the same streams, stats, splits and cached blocks; the
+        # fingerprints hold those blocks, each package in its own order
+        assert g[:3] == w[:3] and g[4] == w[4], (case, step)
+        check_fingerprint_orders(w[4], w[3], g[3], fp_max())
     # every case reached the path it is named after
     final = got[-1][1]
     assert final["prompt_cache_hits"] + final["prefix_hits"] > 0 or \
@@ -140,7 +182,9 @@ def test_int8_weights_prefix_cache_matches_jax_server(models, case,
     port = ts.DecodeServer(pm, params, slots=2, max_len=max_len,
                            prompt_cache=8, cache_dtype=cache_dtype,
                            device="cpu")
-    assert _drive(port, events) == _drive(ref, events)
+    for w, g in zip(_drive(ref, events), _drive(port, events)):
+        assert g[:3] == w[:3] and g[4] == w[4]
+        check_fingerprint_orders(w[4], w[3], g[3], fp_max())
 
 
 @pytest.mark.parametrize("weights", ["dense", "int8"])

@@ -4,15 +4,53 @@ the cases of tests/test_prefix_tree.py: split inheritance, refcounted
 byte accounting, LRU with path compression and the fingerprint's
 chaining; then the copy against the JAX package's module (which imports
 no JAX) on the same random admissions: equal node, byte, split and
-eviction counts and equal fingerprints."""
+eviction counts, and fingerprints of the same blocks in two orders (the
+port's block-major, so the cap keeps every prefix's shallow blocks; the
+JAX package's node by node), and a placement at the default cap after
+long prompts that only the port's order advertises."""
 
 import os
 
 import pytest
 
 from parameter_server_distributed_tpu_torch.models.prefix_tree import (
-    PrefixTree, RowRef, block_hashes, fp_block, overlap_blocks, pack_fp,
-    unpack_fp)
+    PrefixTree, RowRef, block_hashes, fp_block, fp_max, overlap_blocks,
+    pack_fp, unpack_fp)
+
+
+def tree_blocks(tree) -> dict:
+    """Every block boundary hash of the tree's cached paths -> its block
+    depth (0 = the first block)."""
+    depth: dict = {}
+    stack = [(child, list(child.edge))
+             for child in tree.root.children.values()]
+    while stack:
+        node, path = stack.pop()
+        for i, h in enumerate(block_hashes(path)):
+            depth.setdefault(h, i)
+        stack.extend((c, path + list(c.edge))
+                     for c in node.children.values())
+    return depth
+
+
+def check_fingerprint_orders(blocks: dict, jax_fp: bytes, port_fp: bytes,
+                             cap: int) -> None:
+    """The two packages' fingerprints of one tree: both advertise the
+    tree's blocks (all of them under the cap), the port's block-major
+    (block k of every path before block k + 1 of any, so a capped one
+    holds every shallower block), the JAX package's node by node."""
+    port = [int.from_bytes(port_fp[i:i + 4], "little")
+            for i in range(0, len(port_fp), 4)]
+    jax_ = unpack_fp(jax_fp)
+    depths = [blocks[h] for h in port]
+    assert depths == sorted(depths)
+    assert jax_ <= set(blocks)
+    if len(port) < cap:
+        assert set(port) == set(blocks)
+    else:
+        assert {h for h, d in blocks.items() if d < depths[-1]} <= set(port)
+    if len(jax_) < cap:
+        assert jax_ == set(blocks)
 
 
 def ref(nbytes=100):
@@ -221,4 +259,52 @@ def test_copy_matches_the_jax_package_tree(seed, monkeypatch):
         a, b = trees
         assert (a.nodes, a.bytes, a.splits, a.evictions) == (
             b.nodes, b.bytes, b.splits, b.evictions)
-        assert a.fingerprint == b.fingerprint
+        # the same blocks, each package in its own order
+        blocks = tree_blocks(a)
+        assert blocks == tree_blocks(b)
+        check_fingerprint_orders(blocks, a.fingerprint, b.fingerprint,
+                                 fp_max())
+
+
+def test_default_cap_advertises_a_prefix_cached_after_long_prompts():
+    """At the default block and cap: a tree that cached three 2046-token
+    prompts, then a 1024-token prefix.  The JAX package's fingerprint
+    fills its 64 hashes with the long prompts' blocks and advertises 0
+    of the prefix's; the port's advertises the first 16 blocks of every
+    path, so a prompt extending the prefix overlaps it there.  A router
+    scoring the two servers (the prefix's holder and a cold one, equal
+    free slots) sends that prompt to the holder on the port's
+    fingerprint and splits by server id on the JAX one."""
+    from parameter_server_distributed_tpu.fleet import router as jrt
+    from parameter_server_distributed_tpu.fleet import messages as jfm
+    from parameter_server_distributed_tpu.models import prefix_tree as jpt
+    from parameter_server_distributed_tpu_torch.fleet import messages as tfm
+    from parameter_server_distributed_tpu_torch.fleet import router as trt
+
+    import numpy as np
+
+    assert fp_block() == 16 and fp_max() == 64
+    rng = np.random.default_rng(0)
+    longs = [tuple(int(t) for t in rng.integers(0, 32000, 2046))
+             for _ in range(3)]
+    prefix = tuple(int(t) for t in rng.integers(0, 32000, 1024))
+    trees = {"jax": jpt.PrefixTree(10**12), "port": PrefixTree(10**12)}
+    for side, tree in trees.items():
+        row = jpt.RowRef if side == "jax" else RowRef
+        for tokens in (*longs, prefix):
+            tree.insert(tokens, last=0, handle=row(None, 1))
+    prompt = prefix + (5, 6, 7)
+    hashes = block_hashes(prompt)
+    overlap = {side: overlap_blocks(hashes, unpack_fp(t.fingerprint))
+               for side, t in trees.items()}
+    assert overlap == {"jax": 0, "port": 16}
+    placed = {}
+    for side, fm, score in (("jax", jfm, jrt.score_backends),
+                            ("port", tfm, trt.score_backends)):
+        rows = [fm.FleetEntry(server_id=0, address="h:0", slots=8,
+                              free_slots=8, state=fm.MEMBER_ACTIVE),
+                fm.FleetEntry(server_id=1, address="h:1", slots=8,
+                              free_slots=8, state=fm.MEMBER_ACTIVE,
+                              prefix_fp=trees[side].fingerprint)]
+        placed[side] = int(score(rows, {}, hashes)[0].server_id)
+    assert placed == {"jax": 0, "port": 1}

@@ -91,8 +91,8 @@ def _case(flags, error, needle, case_id=None):
                         id=case_id or f"{flags}-{needle}")
 
 
-# --draft-model, --beam, --length-penalty, --draft-len and --serve-port
-# are ported:
+# --draft-model, --beam, --length-penalty, --draft-len, --serve-port and
+# --follow are ported:
 # their cases now hold the reference's own checks of those options (each
 # keeps its case's id); the flags still unported refuse naming their item
 @pytest.mark.parametrize("flags,error,needle", [
@@ -101,7 +101,7 @@ def _case(flags, error, needle, case_id=None):
     _case("--hf-gpt2=gpt2", SystemExit, "item 7"),
     _case("--draft-model=mnist_mlp", ValueError, "is not an LM",
           "--draft-model=tiny_lm-speculative"),
-    _case("--follow=127.0.0.1:1", SystemExit, "item 12: .*swap_params",
+    _case("--follow", SystemExit, "explicit value",
           "--follow=127.0.0.1:1-swap_params"),
     _case("--serve-port", SystemExit, "explicit value",
           "--serve-port=50070-fleet registry"),
@@ -112,6 +112,14 @@ def _case(flags, error, needle, case_id=None):
 def test_serve_main_refusals(flags, error, needle):
     with pytest.raises(error, match=needle):
         serve_main.main(["--model=small_lm", "--device=cpu", *flags.split()])
+
+
+def test_follow_flags_are_ported():
+    assert not {"follow", "subscriber-id"} & set(serve_main.UNPORTED_FLAGS)
+    assert {"follow", "subscriber-id"} <= serve_main.KNOWN_FLAGS
+    with pytest.raises(SystemExit, match="explicit value"):
+        serve_main.main(["--model=small_lm", "--device=cpu",
+                         "--follow=127.0.0.1:1", "--subscriber-id"])
 
 
 @pytest.mark.parametrize("flags,error,needle", [

@@ -184,7 +184,9 @@ def test_serve_main_jsonl_on_cpu(monkeypatch, capsys):
     pytest.param("--draft-model=tiny_lm --draft-len=0", ValueError,
                  "draft_len must be >= 1",
                  id="--draft-model=tiny_lm-speculative"),
-    pytest.param("--follow=127.0.0.1:1", SystemExit, "not ported",
+    # --follow is ported: the case holds the reference's check of a bare
+    # --follow (the id keeps the case's name)
+    pytest.param("--follow", SystemExit, "explicit value",
                  id="--follow=127.0.0.1:1-not ported"),
     pytest.param("--bogus=1", SystemExit, "unknown flag",
                  id="--bogus=1-unknown flag")])

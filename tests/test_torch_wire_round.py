@@ -13,8 +13,8 @@ threads).
   the same store and seeds; its store after the last iteration within
   rtol 5e-4, atol 1e-5 (the gradient tolerance of
   tests/test_pallas_ops.py:40).  Against the port's PS the JAX worker
-  negotiates the shared-memory rings, and its delta negotiation meets
-  UNIMPLEMENTED and downgrades.
+  negotiates the shared-memory rings, and its version-aware pull is
+  answered (in full: it pulls f32, the PS's delta chain is bf16).
 - The PS's default optimizer (``pallas_sgd``, its plain version with
   ``device="cpu"``) applies bit for bit what the JAX PS's default host
   ``sgd`` applies.
@@ -221,7 +221,7 @@ def test_mixed_fleet_tracks_jax_fleet(servers, jax_init, tmp_path,
     if side == "port_services":
         jax_client = workers[1]._ps
         assert jax_client._shm_ok is True       # the port PS's rings
-        assert jax_client._delta_ok is False    # delta RPCs: UNIMPLEMENTED
+        assert jax_client._delta_ok is True     # the delta RPCs answer
         assert jax_client._fused_ok is True
 
 
