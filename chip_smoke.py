@@ -60,7 +60,7 @@ two paths of the port:
   kernels' (the first must agree within 1e-3);
 - the parameter-server round: CoordinatorCore and ParameterServerCore
   (make_optimizer("pallas_adam")) driving two llama_350m workers through
-  3 synchronous rounds (serve -> gradient step -> push; the second push
+  2 synchronous rounds (serve -> gradient step -> push; the second push
   closes the barrier), the round-1 params held against the plain Adam
   update, one pallas_sgd and one pallas_momentum apply through a core,
   and a CheckpointManager save / load / resume that must be bit-exact;
@@ -80,7 +80,7 @@ two paths of the port:
   segment is left in /dev/shm), in two legs: the PS's pallas_adam after
   a host fold (2 rounds; its epoch-1 checkpoint held against ps_round's
   round-1 store) and --optimizer=sharded_adam under both device-close
-  knobs (3 rounds; its epoch-1 checkpoint byte-identical to
+  knobs (2 rounds; its epoch-1 checkpoint byte-identical to
   ps_device_round's round-1 store, no apply fallback); every epoch's
   checkpoint holding its own iteration and Adam step, and the
   processes' launch counts from their exit reports;
@@ -140,14 +140,14 @@ LLAMA = dict(heads=16, kv=4, d=64, layers=24)   # llama_350m attention
 PROMPT_LENS = (129, 200, 300, 511, 513, 700, 1000, 1200)
 NEW_TOKENS = 32
 TRAIN = dict(batch=8, seq=1024, steps=5, lr=1e-3)
-ROUND = dict(workers=2, rounds=3)
+ROUND = dict(workers=2, rounds=2)
 # the stripes of the in-process device round and of the device legs
 DEVICE_STRIPES = 8
 # the wire round's legs: the PS's optimizer, its gradient rounds after the
 # bootstrap, and the knobs of its processes (the device leg closes on the
 # card through the flat arena, at DEVICE_STRIPES stripes)
 WIRE_LEGS = {"host": ("pallas_adam", 2, {}),
-             "device": ("sharded_adam", 3,
+             "device": ("sharded_adam", 2,
                         {"PSDT_DEVICE_APPLY": "1", "PSDT_ARENA": "1",
                          "PSDT_STRIPES": str(DEVICE_STRIPES)})}
 WIRE_LIMIT_S = 420.0   # a wire leg's wall-clock limit, children included
@@ -3232,13 +3232,13 @@ def ps_round(torch, np, fa, fu) -> dict:
     make_optimizer("pallas_adam") is initialised with Trainer.init_params
     (0), and two full-width llama_350m workers (bf16, flash attention,
     remat "full", loss_chunk 128), each on its own batch (the first of
-    its registry stream, seeded with its id), take three rounds of
+    its registry stream, seeded with its id), take ROUND["rounds"] rounds of
     serve_parameters -> compute_gradients -> receive_gradients, one after
     the other; the second push closes each barrier.  Then the round-1
     params against the plain Adam update of the numpy mean, one
     pallas_sgd and one pallas_momentum apply through a one-worker core,
     and a checkpoint resume on the 2-layer f32 model.  Returns the
-    round's launch counts (the three rounds and the two one-apply cores),
+    round's launch counts (the rounds and the two one-apply cores),
     the store after round 1 as host numpy, and the round's headline
     numbers."""
     import shutil
@@ -4142,7 +4142,7 @@ def ps_wire_round(np, round1, in_process: dict | None,
     PushPullStream round per worker with bucketed gradient downloads.
     Leg "host": the PS applies pallas_adam on the card after a numpy fold
     and scale, 2 rounds.  Leg "device": --optimizer=sharded_adam under
-    PSDT_DEVICE_APPLY=1 PSDT_ARENA=1, the whole close on the card, 3
+    PSDT_DEVICE_APPLY=1 PSDT_ARENA=1, the whole close on the card, 2
     rounds.
 
     The epoch-1 checkpoint (the store after the first gradient round) is
@@ -4152,7 +4152,7 @@ def ps_wire_round(np, round1, in_process: dict | None,
     ``round1`` and ``in_process`` are None; every epoch's file must
     hold its own iteration and, in its optimizer sidecar, that
     iteration's Adam step (the PS takes each at the apply that advanced
-    the epoch, whatever its writer lags).  Rounds 2-3 take each
+    the epoch, whatever its writer lags).  Rounds from 2 on take each
     stream's next batches (ps_round repeats the first), so their losses
     are only held finite.  Each process writes an exit report (launch
     counts, peak card memory, its obs histograms) and each worker its
@@ -4680,6 +4680,391 @@ def config1_wire(np) -> dict:
     return launches_a
 
 
+# BASELINE config 2 (1 PS / 4 workers, async-SGD CIFAR-10 ResNet-18) as
+# BASELINE.md runs it: 4 resnet18_cifar workers at batch 256, the PS at
+# staleness 4; each worker a bootstrap iteration, then ``rounds``
+# gradient iterations; an SGD rate at which the loss falls
+CONFIG2 = dict(workers=4, batch=256, rounds=10, lr=0.05, staleness=4)
+CONFIG2_LIMIT_S = 300.0   # the phase's wall-clock limit, children included
+# the image rows' in-process card steps: the CIFAR rows at config 2's
+# batch, the ImageNet rows at a batch of 32 (each row's own full width);
+# then a CHECK_IMAGES-image batch on the card against the port on the CPU
+IMAGE_ROWS = {"resnet18_cifar": 256, "vit_tiny_cifar": 256,
+              "resnet50_imagenet": 32, "vit_s16_imagenet": 32}
+CHECK_IMAGES = 4
+# how each row's CHECK_IMAGES gradients are held, card against CPU:
+# "strict" rtol 5e-4, atol 1e-5 a entry; "max" within 2^-5 of each
+# gradient's largest entry; None not held (reported).  A float32 conv's
+# weight gradient is a sum with much cancellation, whose error cuDNN's
+# and the CPU's algorithms bound against the norm of their inputs: at
+# resnet18_cifar's card-seeded store the CPU port's own float32
+# gradients lie 120 times the strict allowance from a float64
+# evaluation (1.1 % of the largest entry; resnet_grad_conditioning.py),
+# and ResNet-50's at its init are ill-conditioned (PERF.md section 6)
+GRADS_HELD = {"resnet18_cifar": "max", "vit_tiny_cifar": "strict",
+              "resnet50_imagenet": None, "vit_s16_imagenet": "max"}
+
+
+def sgd_at_resnet18(torch, fu, gen) -> dict:
+    """The SGD kernel at the resnet18_cifar store (62 f32 tensors,
+    11,173,962 elements, most of them 64- to 512-element norm vectors)
+    against ``fu.sgd_reference`` bit for bit, in the planner's launches,
+    then timed beside the plain version, the bound (12 bytes and 2
+    operations an element) and torch.optim's fused SGD over the same
+    tensors.  Returns the kernels line's entry for that store."""
+    from parameter_server_distributed_tpu_torch.models.resnet import \
+        resnet18
+
+    shapes = resnet18().param_shapes()
+    n = sum(math.prod(s) for s in shapes.values())
+    p, g = llama_store(torch, shapes, gen), llama_store(torch, shapes, gen)
+    names = list(p)
+    expected = update_launches(fu, shapes)
+    fu.reset_launches()
+    with torch.inference_mode():
+        out = fu.fused_sgd(p, g, 0.05)
+        ref = {x: fu.sgd_reference(p[x], g[x], 0.05) for x in names}
+        torch.cuda.synchronize()
+    launched = fu.launches["fused_sgd"]
+    exact = all(bool(torch.equal(out[x], ref[x])) for x in names)
+    err = max(float((out[x] - ref[x]).abs().max()) for x in names)
+    del out, ref
+
+    def kernel():
+        return fu.fused_sgd(p, g, 1e-3)
+
+    def plain():
+        return [fu.sgd_reference(p[x], g[x], 1e-3) for x in names]
+
+    with torch.inference_mode():
+        runs = [cuda_ms(torch, kernel, iters=20)]
+        plain_ms = cuda_ms(torch, plain, iters=5)
+        runs.append(cuda_ms(torch, kernel, iters=20))
+        kernel_dev = device_profile(torch, kernel)
+    params = [torch.nn.Parameter(p[x].clone()) for x in names]
+    for param, x in zip(params, names):
+        param.grad = g[x]
+    opt = torch.optim.SGD(params, lr=1e-3, fused=True)
+    library = cuda_ms(torch, opt.step, iters=20)
+    del opt, params
+    bound_ms, bound_by = bound(UPDATE_FLOPS["sgd"] * n,
+                               UPDATE_BYTES["sgd"] * n, "float32")
+    entry = {"tensors": len(names), "elements": n,
+             "launches_per_apply": launched, "max_abs_err": err,
+             "bit_exact": exact, "ms": min(runs), "ms_runs": runs,
+             "device_ms": kernel_dev["ms"], "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library,
+             "library": "torch.optim.SGD(fused=True)"}
+    emit({"phase": "fused_sgd_resnet18_store", **entry})
+    if not exact:
+        fail(f"fused_sgd at the resnet18_cifar store is not bit-equal to "
+             f"sgd_reference: max abs err {err}")
+    if launched != expected:
+        fail(f"fused_sgd took {launched} launches over the resnet18_cifar "
+             f"store, not the planner's {expected}")
+    del p, g
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _grads_agree(np, got: dict, want: dict, by_max: bool
+                 ) -> tuple[bool, dict]:
+    """Whether the card's gradients ``got`` match the CPU's ``want``:
+    within rtol 5e-4, atol 1e-5 a entry (the reference's gradient
+    tolerance), or with ``by_max`` within 2^-5 of each gradient's largest
+    entry.  Also the three largest errors over their allowance."""
+    ratio = {}
+    for name, ref in want.items():
+        diff = np.abs(got[name] - ref)
+        allowed = (2.0 ** -5 * float(np.abs(ref).max()) if by_max
+                   else 1e-5 + 5e-4 * np.abs(ref))
+        ratio[name] = float(np.max(diff / np.maximum(allowed, 1e-30)))
+    worst = dict(sorted(ratio.items(), key=lambda kv: -kv[1])[:3])
+    return (all(r <= 1.0 for r in ratio.values())
+            and len(got) == len(want)), worst
+
+
+def image_rows(torch, np) -> dict:
+    """Each image row of the registry (IMAGE_ROWS) on the card: its model
+    at full width from get_model_and_batches, one batch of its synthetic
+    stream (the CIFAR rows share theirs, the ImageNet rows theirs), a
+    Trainer step from a seeded store twice (the first holds cuDNN's
+    set-up), the losses and gradients finite; then the same model and
+    store on a CHECK_IMAGES-image slice of the batch, on the card against
+    the port on the CPU (TF32 off): the loss within rtol 5e-4 (bf16 rows
+    1e-2) and the gradients as GRADS_HELD says, which catches padding or
+    layout faults that only cuDNN's algorithms would show.  ResNet-50's
+    gradients at its init are ill-conditioned (two float32 evaluations on
+    the CPU that differ only in their thread count part by 18 % of a
+    gradient's largest entry), so for resnet50_imagenet the comparison
+    holds its bf16 loss and its float32 logits (the same store: within
+    5e-4 of the largest logit, 1e-5 at least), and reports the
+    gradients' distance beside the CPU's own spread over thread counts.
+    Reports each row's step time, images/s and peak card memory."""
+    import dataclasses
+
+    from parameter_server_distributed_tpu_torch.models.convert import \
+        params_from_numpy
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model_and_batches
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
+
+    out, faults, first = {}, [], {}
+    for name, batch in IMAGE_ROWS.items():
+        model, batches = get_model_and_batches(name, batch, seed=0)
+        key = "imagenet" if "imagenet" in name else "cifar"
+        data_s = 0.0
+        if key not in first:
+            t0 = time.perf_counter()
+            first[key] = next(batches)
+            data_s = time.perf_counter() - t0
+        x, y = first[key]
+        del batches
+        trainer = Trainer(model)
+        store = trainer.init_params(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            grads, loss = trainer.compute_gradients(store, (x, y))
+            steps.append(time.perf_counter() - t0)
+            losses.append(loss)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        finite = all(math.isfinite(v) for v in losses) and all(
+            bool(np.isfinite(g).all()) for g in grads.values())
+        del grads
+        bf16 = model.config.dtype == torch.bfloat16
+        xs, ys = x[:CHECK_IMAGES], y[:CHECK_IMAGES]
+        card, card_loss = trainer.compute_gradients(store, (xs, ys))
+        t0 = time.perf_counter()
+        cpu, cpu_loss = Trainer(model, device="cpu").compute_gradients(
+            store, (xs.cpu(), ys.cpu()))
+        cpu_s = time.perf_counter() - t0
+        held = GRADS_HELD[name]
+        agree, worst = _grads_agree(np, card, cpu, held != "strict")
+        strict = (_grads_agree(np, card, cpu, False)[1]
+                  if held != "strict" else worst)
+        loss_ok = abs(card_loss - cpu_loss) <= (1e-2 if bf16 else 5e-4) \
+            * abs(cpu_loss)
+        row = {
+            "dtype": str(model.config.dtype).replace("torch.", ""),
+            "params": model.num_params(), "tensors": len(store),
+            "batch": batch, "image": list(x.shape[1:]),
+            "data_s": data_s, "step_s": steps,
+            "images_per_s": batch / steps[-1], "peak_mem_gb": peak,
+            "losses": losses, "check_images": CHECK_IMAGES,
+            "card_loss": card_loss, "cpu_loss": cpu_loss, "cpu_s": cpu_s,
+            "grads_held": {"strict": "rtol 5e-4, atol 1e-5",
+                           "max": "2^-5 of each gradient's largest entry",
+                           None: "reported, not held"}[held],
+            "worst_over_allowance": worst,
+            "worst_over_strict_allowance": strict}
+        if name == "resnet50_imagenet":
+            # the CPU against itself at one thread: the gradients' spread
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                cpu1, _ = Trainer(model, device="cpu").compute_gradients(
+                    store, (xs.cpu(), ys.cpu()))
+            finally:
+                torch.set_num_threads(threads)
+            row["cpu_threads_1_vs_n"] = _grads_agree(np, cpu1, cpu, True)[1]
+            f32 = type(model).from_config(dataclasses.replace(
+                model.config, dtype=torch.float32))
+            with torch.no_grad():
+                logits = {dev: f32.apply(params_from_numpy(
+                    store, f32.config, device=dev), xs.to(dev)).cpu()
+                    for dev in ("cuda", "cpu")}
+            # within 5e-4 of the largest logit, 1e-5 at least
+            err = float((logits["cuda"] - logits["cpu"]).abs().max())
+            top = float(logits["cpu"].abs().max())
+            logits_ok = err <= 1e-5 + 5e-4 * top
+            row["f32_logits"] = {"max_abs_err": err, "max_abs": top}
+            row["agree"] = loss_ok and logits_ok
+        else:
+            row["agree"] = agree and loss_ok
+        out[name] = row
+        if not finite:
+            faults.append(f"{name}: a loss or gradient is not finite")
+        if not row["agree"]:
+            faults.append(f"{name}: card against CPU: losses {card_loss} "
+                          f"{cpu_loss}, worst {worst}")
+        del trainer, store, card, cpu, model
+        torch.cuda.empty_cache()
+    emit({"phase": "image_rows", "rows": out,
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32}})
+    if faults:
+        fail(f"image_rows: {faults}")
+    return out
+
+
+def write_cifar_npz(np, path: str) -> None:
+    """The synthetic CIFAR stand-in that resnet18_cifar's stream samples
+    at batch 256 (the class-cluster set of dataset seed 0, 4096 NHWC
+    images), as the npz of x and y that ``--data`` reads."""
+    from parameter_server_distributed_tpu_torch.data.synthetic import \
+        synthetic_cifar10
+
+    ds = synthetic_cifar10(num_examples=4096, seed=0)
+    np.savez(path, x=ds.x.reshape(-1, 32, 32, 3), y=ds.y)
+
+
+def config2_wire(np, workers: int = CONFIG2["workers"],
+                 batch: int = CONFIG2["batch"],
+                 rounds: int = CONFIG2["rounds"],
+                 device_args: tuple = ()) -> dict:
+    """BASELINE config 2 as the reference runs it: cli.ps_main (``workers``
+    workers, its default optimizer pallas_sgd, --staleness=4, lr
+    CONFIG2["lr"]), cli.coordinator_main and ``workers``
+    cli.worker_main processes (resnet18_cifar, batch 256, the
+    shared-memory rings and the native codec), all on the card; the last
+    worker reads --data=<an npz of the synthetic CIFAR stand-in>.  Each
+    worker runs a bootstrap iteration (the first seeds the PS, the others'
+    pushes are its duplicates) and ``rounds`` gradient iterations, each
+    ending in one applied push (a push refused as stale fast-forwards the
+    worker, which pushes again).  Holds: every child exits 0, each
+    worker's loss falls, the PS applied ``workers * rounds`` updates with
+    one fused_sgd launch each (as ops.fused_update.plan gives for the
+    store), no host-rule fallback, every process on the rings and the
+    native codec, no segment left.  Prints the pushes refused as stale
+    (each worker's log), the aggregate grad-samples/s, a round's p50
+    split (step, data, compute, fused push + serve round; the PS's apply
+    and serve) and each worker's peak card memory.  ``device_args``
+    (e.g. ("--device=cpu",)) goes to the PS and the workers.  Returns the
+    launch counts summed over the processes."""
+    import shutil
+    import tempfile
+
+    from parameter_server_distributed_tpu_torch.models.resnet import \
+        resnet18
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+
+    lr, staleness = CONFIG2["lr"], CONFIG2["staleness"]
+    # a CPU rehearsal's children launch no kernel
+    per_apply = update_launches(fu, resnet18().param_shapes()) \
+        if not device_args else 0
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="config2-", dir=os.path.join(HERE, "build"))
+    try:
+        npz = os.path.join(tmp, "cifar.npz")
+        write_cifar_npz(np, npz)
+        env = child_env(tmp)
+        t0 = time.perf_counter()
+        wall, ps_pid = _run_round(
+            _spawner(tmp, env),
+            [str(workers), "10", f"--staleness={staleness}", f"--lr={lr}",
+             f"--ckpt-dir={tmp}/ck", f"--report={tmp}/ps.json",
+             *device_args],
+            [[str(w), str(rounds + 1), "--model=resnet18_cifar",
+              f"--batch={batch}", f"--report={tmp}/worker-{w}.json",
+              *device_args,
+              *([f"--data={npz}"] if w == workers - 1 else [])]
+             for w in range(workers)], CONFIG2_LIMIT_S)
+        phase_s = time.perf_counter() - t0
+        reports, records, stale = {}, {}, {}
+        with open(os.path.join(tmp, "ps.json")) as f:
+            reports["ps"] = json.load(f)
+        for w in range(workers):
+            with open(os.path.join(tmp, f"worker-{w}.json")) as f:
+                reports[f"worker {w}"] = json.load(f)
+            with open(os.path.join(tmp, f"metrics-{w}.jsonl")) as f:
+                records[w] = [json.loads(line) for line in f]
+            # the worker logs are the spawner's, named by their order
+            log = os.path.join(tmp, f"worker_main-{w + 2}.log")
+            with open(log) as f:
+                stale[w] = f.read().count("fast-forwarding")
+        left = shm_left(ps_pid)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    faults = transport_faults(reports, shm=True, native=True)
+    if left:
+        faults.append(f"segments left: {left}")
+    ps = reports["ps"]
+    applied = ps.get("applied_updates")
+    expected_ps = {**{name: 0 for name in ps["launches"]},
+                   "fused_sgd": per_apply * workers * rounds}
+    if applied != workers * rounds:
+        faults.append(f"PS applied {applied} updates, not "
+                      f"{workers * rounds}")
+    if ps["launches"] != expected_ps:
+        faults.append(f"PS launches {ps['launches']} != {expected_ps}")
+    if ps["launches"].get("fused_sgd") != per_apply * (applied or 0):
+        faults.append("PS fused_sgd launches differ from its applied "
+                      "pushes")
+    if ps.get("optimizer") != "PallasOptimizer" or \
+            ps["counters"].get("ps.apply.device_fallback") != 0:
+        faults.append(f"PS optimizer {ps.get('optimizer')}, fallbacks "
+                      f"{ps['counters'].get('ps.apply.device_fallback')}")
+    losses, per_worker = {}, {}
+    for w in range(workers):
+        r = reports[f"worker {w}"]
+        if any(r["launches"].values()):
+            faults.append(f"worker {w} launches {r['launches']}")
+        if r["counters"].get("rpc.shm.bytes", 0) <= 0:
+            faults.append(f"worker {w} moved no ring bytes")
+        grads = [rec for rec in records[w] if not rec.get("bootstrap")
+                 and math.isfinite(rec.get("loss", float("nan")))]
+        losses[w] = [rec["loss"] for rec in grads]
+        if len(losses[w]) < rounds - 1 or losses[w][-1] >= losses[w][0]:
+            faults.append(f"worker {w} losses not falling: {losses[w]}")
+        per_worker[w] = {"peak_mem_gb": r["peak_mem_bytes"] / 1e9,
+                         "stale_refusals": stale[w],
+                         "gradient_iterations": len(losses[w]),
+                         "data": "npz" if w == workers - 1 else "synthetic"}
+    steady = [rec for w in range(workers) for rec in records[w]
+              if not rec.get("bootstrap") and rec["step"] >= 2]
+
+    def p50(key):
+        vals = [rec[key] for rec in steady if key in rec]
+        return float(np.median(vals)) if vals else None
+
+    # gradient iterations of all workers over the wall time between the
+    # first worker's first gradient iteration and the last worker's end
+    starts = [rec["t"] - rec["step_time_s"] for w in range(workers)
+              for rec in records[w] if not rec.get("bootstrap")]
+    ends = [rec["t"] for w in range(workers) for rec in records[w]]
+    span = max(ends) - min(starts)
+    samples = batch * sum(len(v) for v in losses.values())
+    hist = ps["histograms"]
+    out = {"phase": "config2_wire", "model": "resnet18_cifar",
+           "batch": batch, "workers": workers, "rounds": rounds,
+           "staleness": staleness, "lr": lr,
+           "optimizer": "pallas_sgd (ps_main default)",
+           "wall_s": wall, "phase_s": phase_s,
+           "applied_updates": applied,
+           "stale_refusals": sum(stale.values()),
+           "fused_sgd_per_apply": per_apply,
+           "grad_samples_per_s": samples / span, "train_span_s": span,
+           "round_p50_s": {"step": p50("step_time_s"), "data": p50("data_s"),
+                           "compute": p50("compute_s"),
+                           "fused_push_serve": p50("fused_s"),
+                           "pull": p50("pull_s")},
+           "ps_apply_s": hist.get("ps.apply_s"),
+           "ps_serve_s": hist.get("ps.serve_s"),
+           "ps_serve_encode_s": hist.get("ps.serve.encode_s"),
+           "losses": losses, "workers_detail": per_worker,
+           "peak_mem_gb": {k: r["peak_mem_bytes"] / 1e9
+                           for k, r in reports.items()},
+           "launches": {k: {n: v for n, v in r["launches"].items() if v}
+                        for k, r in reports.items()},
+           "expected_ps_launches": {k: v for k, v in expected_ps.items()
+                                    if v}}
+    emit(out)
+    if faults:
+        fail(f"config2_wire: {faults}")
+    launches = dict.fromkeys(list(fu.launches) + list(da.launches)
+                             + list(i8.launches), 0)
+    for r in reports.values():
+        for name, v in r["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    return launches
+
+
 def first_adam_vs_plain(torch, np, fu, before, grads, after,
                         opt) -> dict:
     """The first Adam apply of a store, tensor by tensor: the params and
@@ -4890,6 +5275,7 @@ def main() -> int:
     serve_t = time_flash_fwd(torch, F, fa, gen)
     train_t = time_flash_train(torch, F, fa, gen)
     update_t = time_updates(torch, fu, shapes, gen)
+    update_t["fused_sgd"]["resnet18_store"] = sgd_at_resnet18(torch, fu, gen)
     da_err, da_t = check_device_apply(torch, np, shapes, gen)
     max_err.update(da_err)
     i8_err, i8_t = check_int8_kernels(torch, np, gen)
@@ -4949,6 +5335,23 @@ def main() -> int:
           "elapsed_s": time.perf_counter() - t_start})
     mlp_launches = mlp_train(torch, np, fa, fu)
     torch.cuda.empty_cache()
+    emit({"phase": "mlp_trained", "elapsed_s": time.perf_counter() - t_start})
+    # the image rows in process: no kernel of the port runs there
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+    for mod in (fa, fu, da, i8):
+        mod.reset_launches()
+    image_rows(torch, np)
+    image_launches = {**fa.launches, **fu.launches, **da.launches,
+                      **i8.launches}
+    if any(image_launches.values()):
+        fail(f"image_rows launched {image_launches}")
+    torch.cuda.empty_cache()
+    emit({"phase": "image_rows_done",
+          "elapsed_s": time.perf_counter() - t_start})
+    config2_launches = config2_wire(np)
+    emit({"phase": "config2_done",
+          "elapsed_s": time.perf_counter() - t_start})
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
     # B=1), the others at the training shapes, the device close's at the
@@ -4980,7 +5383,9 @@ def main() -> int:
                       "ps_device_round": device_launches.get(name, 0),
                       "ps_wire_round": wire_launches.get(name, 0),
                       "config1_wire": config1_launches.get(name, 0),
-                      "mlp_train": mlp_launches.get(name, 0)}
+                      "mlp_train": mlp_launches.get(name, 0),
+                      "image_rows": image_launches.get(name, 0),
+                      "config2_wire": config2_launches.get(name, 0)}
                for name in sources}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
@@ -4996,7 +5401,7 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
-        for key in ("lanes", "verify"):
+        for key in ("lanes", "verify", "resnet18_store"):
             if key in t:
                 entry[key] = t[key]
         kernels.append(entry)
@@ -5013,6 +5418,8 @@ def main() -> int:
                             "delta_follow")) <= 0)
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
+           or (k["name"] == "fused_sgd"
+               and k["launches_by_path"]["config2_wire"] <= 0)
            for k in kernels):
         fail(f"a kernel of the main paths never launched: {by_path}")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

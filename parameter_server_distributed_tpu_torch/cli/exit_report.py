@@ -12,10 +12,11 @@ store), ``ps.apply.device_fallback`` and ``ps.apply.arena_fallback``.
 The launch counts include ``ops.device_apply``'s four kernels and
 ``ops.int8_serve``'s three; ``peak_rss_bytes`` is the process's peak
 resident host memory.  The PS adds its optimizer's class
-(``optimizer``) and its delta chain's state (``delta``: armed or not,
-the (version, crc, wall time) of the last versions published), a
-serving process its stats, streams served and, following a PS, its
-follower's state and swaps.
+(``optimizer``), the updates its async mode applied
+(``applied_updates``, 0 when synchronous) and its delta chain's state
+(``delta``: armed or not, the (version, crc, wall time) of the last
+versions published), a serving process its stats, streams served and,
+following a PS, its follower's state and swaps.
 ``chip_smoke.py`` reads it to check and report the processes' work."""
 
 from __future__ import annotations

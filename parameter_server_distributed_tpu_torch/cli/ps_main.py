@@ -115,6 +115,7 @@ def main(argv: list[str] | None = None) -> int:
             from .exit_report import write_exit_report
             write_exit_report(report, "ps",
                               optimizer=type(ps.optimizer).__name__,
+                              applied_updates=ps.core.applied_updates,
                               delta=ps.service.delta_report())
     return 0
 

@@ -11,9 +11,14 @@ of failure (reference: src/worker_main.cpp:28-38).
 
 Flags:
     --model=NAME     registry model (default llama_350m): a transformer
-                     LM, or mnist_mlp / mlp_1b (models/registry.py)
+                     LM, mnist_mlp / mlp_1b, resnet18_cifar /
+                     resnet50_imagenet or vit_tiny_cifar /
+                     vit_s16_imagenet (models/registry.py)
     --batch=N        per-worker batch size (default 32)
     --seed=N         data seed (default: the worker id, so streams differ)
+    --data=PATH      file-backed data: a token shard (.bin uint16, .u32)
+                     or a .txt corpus for an LM, an npz of x and y for a
+                     classification row (default: the synthetic stream)
     --dtype=f32|bf16 model compute dtype (default: the model's)
     --remat / --no-remat / --scan-layers / --no-scan-layers
                      layer-loop knobs (absent = the model's default)
@@ -26,16 +31,21 @@ Flags:
     --report=PATH    write the exit report there (cli/exit_report.py)
 
 ``PSDT_METRICS_FILE`` (``%d`` becomes the worker id) receives one JSON
-record per iteration with its phase times (worker/worker.py).  Not
-ported: --mesh (ROADMAP.md Queue 1, item 8), --freerun (item 11),
---tiers (item 10), --data (item 2), the int8 and topk encodings and
---topk-density (their error feedback, item 10).
+record per iteration with its phase times (worker/worker.py).  The
+worker keeps float32 convolutions at float32 on the card: it turns
+cuDNN's TF32 off at its start (torch's default lets cuDNN run float32
+convolutions in TF32, which the reference's float32 convs are not).
+Not ported: --mesh (ROADMAP.md Queue 1, item 8), --freerun (item 11),
+--tiers (item 10), the int8 and topk encodings and --topk-density
+(their error feedback, item 10).
 """
 
 from __future__ import annotations
 
 import logging
 import sys
+
+import torch
 
 from ..config import WorkerConfig, parse_argv, require_flag_value
 from ..models.registry import get_model_and_batches
@@ -54,14 +64,14 @@ UNPORTED_FLAGS = {
 def build_worker(config: WorkerConfig, seed: int | None = None,
                  remat: bool | None = None,
                  scan: bool | None = None) -> Worker:
-    """A Worker over a registry model and its synthetic data stream
-    (seeded with the worker id unless ``seed`` is given), on
-    ``config.device``."""
+    """A Worker over a registry model and its data stream (synthetic, or
+    the file ``config.data_path``; seeded with the worker id unless
+    ``seed`` is given), on ``config.device``."""
     data_seed = config.worker_id if seed is None else seed
     model, batches = get_model_and_batches(
         config.model, config.batch_size, seed=data_seed,
-        dtype=config.model_dtype, device=config.device, remat=remat,
-        scan=scan)
+        data_path=config.data_path, dtype=config.model_dtype,
+        device=config.device, remat=remat, scan=scan)
     return Worker(config, Trainer(model, device=config.device), batches)
 
 
@@ -78,10 +88,6 @@ def build_config(argv: list[str]) -> tuple[WorkerConfig, dict]:
     for flag, where in UNPORTED_FLAGS.items():
         if flag in flags:
             raise NotImplementedError(f"--{flag}: {where}")
-    if "data" in flags:
-        raise NotImplementedError(
-            f"--data={flags['data']}: ROADMAP.md Queue 1, item 2 "
-            f"(file-backed token data)")
     config = WorkerConfig(
         coordinator_address=(positional[0] if len(positional) > 0
                              else "127.0.0.1:50052"),
@@ -93,6 +99,7 @@ def build_config(argv: list[str]) -> tuple[WorkerConfig, dict]:
         model=flags.get("model", "llama_350m"),
         batch_size=int(flags.get("batch", 32)),
         model_dtype=flags.get("dtype", ""),
+        data_path=flags.get("data", ""),
         wire_dtype=flags.get("wire", "f32"),
         fused_step="no-fused" not in flags,
         device=flags.get("device") or None,
@@ -105,6 +112,7 @@ def main(argv: list[str] | None = None) -> int:
     config, flags = build_config(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    torch.backends.cudnn.allow_tf32 = False
     worker = build_worker(
         config, seed=int(flags["seed"]) if "seed" in flags else None,
         remat=_tri(flags, "remat"), scan=_tri(flags, "scan-layers"))

@@ -77,6 +77,9 @@ class WorkerConfig:
     batch_size: int = 32
     model: str = "llama_350m"
     model_dtype: str = ""        # "f32" / "bf16"; "" = the model's default
+    # file-backed data: a token shard or .txt corpus for an LM, an npz
+    # of x and y for a classification row; "" = the synthetic stream
+    data_path: str = ""
     # payload encoding on push/pull: f32 (reference repeated float), raw
     # or bf16; packed encodings are negotiated and fall back to f32
     # against a reference PS (int8 and topk need error feedback, which

@@ -1,11 +1,12 @@
 """Synthetic data: the port's copy of ``synthetic_tokens``,
-``ClassClusterDataset``, ``xy_batch_stream`` and ``synthetic_mnist`` from
+``ClassClusterDataset``, ``xy_batch_stream``, ``synthetic_mnist``,
+``synthetic_cifar10`` and ``synthetic_image_batches`` from
 parameter_server_distributed_tpu/data/synthetic.py.  The numbers come
 from the same numpy streams as the JAX package's, so one seed gives both
 packages the same batches.  Token batches are int32 tensors on the card
-unless the caller asks for the CPU; the classification datasets yield
-numpy ``(x, y)`` batches, which the registry moves to the device
-(models/registry.py)."""
+unless the caller asks for the CPU; the classification datasets and the
+image stream yield numpy ``(x, y)`` batches, which the registry moves to
+the device (models/registry.py)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,26 @@ class ClassClusterDataset:
 def synthetic_mnist(num_examples: int = 4096,
                     seed: int = 0) -> ClassClusterDataset:
     return ClassClusterDataset(784, 10, num_examples, seed)
+
+
+def synthetic_cifar10(num_examples: int = 4096,
+                      seed: int = 0) -> ClassClusterDataset:
+    """Flat 32*32*3 features; image models reshape to NHWC."""
+    return ClassClusterDataset(32 * 32 * 3, 10, num_examples, seed)
+
+
+def synthetic_image_batches(batch_size: int, image_size: int = 32,
+                            channels: int = 3, num_classes: int = 10,
+                            seed: int = 0, dataset_seed: int = 0
+                            ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Endless NHWC float32 image batches and int32 labels for the image
+    models.  ``seed`` varies the sampling order only; the dataset (its
+    cluster centers, the task) comes from ``dataset_seed``, so
+    differently seeded streams (one a worker) draw from one task.  The
+    dataset holds 64 batches below a batch of 64, else 4096 examples."""
+    ds = ClassClusterDataset(
+        image_size * image_size * channels, num_classes,
+        num_examples=64 * batch_size if batch_size < 64 else 4096,
+        seed=dataset_seed)
+    for x, y in ds.batch_stream(batch_size, seed=seed):
+        yield x.reshape(-1, image_size, image_size, channels), y

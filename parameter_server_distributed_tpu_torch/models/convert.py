@@ -1,10 +1,12 @@
 """Parameter stores from numpy: the JAX package's parameters (a
-transformer's or an MLP's), converted with ``np.asarray``, become the
-port's store of torch tensors.  A quantized leaf (the JAX package's
-``quantize_params`` QTensor) crosses as its ``(q, scale)`` numpy pair and
-becomes the port's :class:`~.quant.QTensor`.  :class:`StoreUploader`
-moves a host float32 store (a PS's, as a weight follower holds it) to
-the card through one pinned buffer and one copy."""
+transformer's, an MLP's, a ResNet's or a ViT's), converted with
+``np.asarray``, become the port's store of torch tensors (a ResNet's
+conv weights stay HWIO, as the JAX store holds them).  A quantized leaf
+(the JAX package's ``quantize_params`` QTensor) crosses as its ``(q,
+scale)`` numpy pair and becomes the port's :class:`~.quant.QTensor`.
+:class:`StoreUploader` moves a host float32 store (a PS's, as a weight
+follower holds it) to the card through one pinned buffer and one
+copy."""
 
 from __future__ import annotations
 
@@ -16,8 +18,12 @@ import torch
 from ..device import resolve_device
 from .mlp import MLP, MLPConfig
 from .quant import QTensor
+from .resnet import ResNet, ResNetConfig
 from .transformer import (Transformer, TransformerConfig, stack_layers,
                           unstack_layers)
+from .vit import ViT, ViTConfig
+
+Config = TransformerConfig | MLPConfig | ResNetConfig | ViTConfig
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -31,14 +37,13 @@ def _tensor(arr) -> torch.Tensor:
 
 
 def params_from_numpy(store: Mapping[str, np.ndarray],
-                      config: TransformerConfig | MLPConfig,
-                      device=None) -> dict[str, torch.Tensor]:
+                      config: Config, device=None) -> dict[str, torch.Tensor]:
     """Convert a numpy parameter store into the layout ``config`` names,
     in ``config.dtype``, on ``device`` (default: the card): a
     transformer's in the unrolled (``layer<i>/*``) or the stacked
-    (``blocks/*``) layout, or an MLP's (``layer<i>/w``, ``layer<i>/b``);
-    a ``(q, scale)`` pair keeps its int8 codes and f32 scales.  Raises
-    on names or shapes the config does not expect."""
+    (``blocks/*``) layout, an MLP's (``layer<i>/w``, ``layer<i>/b``), a
+    ResNet's or a ViT's; a ``(q, scale)`` pair keeps its int8 codes and
+    f32 scales.  Raises on names or shapes the config does not expect."""
     dev = resolve_device(device)
     params = _in_layout({name: QTensor(_tensor(value[0]), _tensor(value[1]))
                          if isinstance(value, (tuple, list))
@@ -49,11 +54,15 @@ def params_from_numpy(store: Mapping[str, np.ndarray],
             for name, value in params.items()}
 
 
-def _in_layout(params: dict, config: TransformerConfig | MLPConfig) -> dict:
+def _in_layout(params: dict, config: Config) -> dict:
     """``params`` in the layout ``config`` names (stacked or unrolled
     layers); raises on names or shapes the config does not expect."""
     if isinstance(config, MLPConfig):
         expected = MLP(config.layer_sizes, config.dtype).param_shapes()
+    elif isinstance(config, ResNetConfig):
+        expected = ResNet.from_config(config).param_shapes()
+    elif isinstance(config, ViTConfig):
+        expected = ViT(config).param_shapes()
     else:
         stacked = any(name.startswith("blocks/") for name in params)
         if config.scan_layers and not stacked:
@@ -80,7 +89,7 @@ class StoreUploader:
     are those of :func:`params_from_numpy` (the same round-to-nearest
     conversion), at one copy instead of one a tensor."""
 
-    def __init__(self, config: TransformerConfig | MLPConfig, device=None):
+    def __init__(self, config: Config, device=None):
         self.config = config
         self.device = resolve_device(device)
         self._host: torch.Tensor | None = None

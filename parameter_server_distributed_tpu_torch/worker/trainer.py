@@ -7,10 +7,12 @@ buffer each way per step, whatever the tensor count: one packed upload
 returns them, one pack on the card), an unpack into ``config.dtype``
 leaves that require grad, autograd of ``model.loss``, and one packed f32
 output with the loss at offset 0.  Gradients are taken with respect to
-the ``config.dtype`` leaves and then cast to f32, as the JAX step does.
-The model is a transformer LM (token batches) or an MLP (``(x, y)``
-batches); the step hands ``model.loss`` the batch as it came, on the
-device.
+the ``config.dtype`` leaves and then cast to f32, as the JAX step does
+(a bf16 ResNet-50's or ViT-S/16's gradients are bf16 tensors widened to
+f32 for the wire).  The model is a transformer LM (token batches) or a
+classifier, an MLP, a ResNet or a ViT (``(x, y)`` batches, NHWC images
+for the last two); the step hands ``model.loss`` the batch as it came,
+on the device.
 
 ``compute_gradients`` downloads that output whole; the wire round's
 ``compute_gradient_buckets`` leaves it on the card and hands back a

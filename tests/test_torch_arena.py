@@ -567,16 +567,27 @@ def port_worker(coord_port: int, wid: int) -> Worker:
     return Worker(config, Trainer(model, device="cpu"), batches)
 
 
+# one JAX Trainer a worker id, compiled once and reused by the fleets
+# that run one after the other (never two workers on one trainer)
+_REF_TRAINERS: dict = {}
+
+
+def ref_trainer(wid: int) -> RefTrainer:
+    if wid not in _REF_TRAINERS:
+        model, _ = ref_registry.get_model_and_batches("mnist_mlp", BATCH)
+        _REF_TRAINERS[wid] = RefTrainer(model,
+                                        local_devices=jax.devices()[:1])
+    return _REF_TRAINERS[wid]
+
+
 def ref_worker(coord_port: int, wid: int) -> RefWorker:
     config = ref_config.WorkerConfig(
         coordinator_address=f"127.0.0.1:{coord_port}", worker_id=wid,
         batch_size=BATCH, model="mnist_mlp", wire_dtype="bf16",
         heartbeat_period_s=1.0)
-    model, batches = ref_registry.get_model_and_batches("mnist_mlp", BATCH,
-                                                        seed=wid)
-    return RefWorker(config, RefTrainer(model,
-                                        local_devices=jax.devices()[:1]),
-                     batches)
+    _, batches = ref_registry.get_model_and_batches("mnist_mlp", BATCH,
+                                                    seed=wid)
+    return RefWorker(config, ref_trainer(wid), batches)
 
 
 def fleet(start, port_side: bool, makers, init, tmp_path):

@@ -16,6 +16,19 @@ from parameter_server_distributed_tpu.ops.pallas import \
     flash_attention as jax_flash
 from parameter_server_distributed_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 CASES = [(s, block, kv, groups)
          for s, block in [(64, 32), (128, 128), (96, 32)]
          for kv in (1, 2) for groups in (1, 2, 4)]

@@ -24,6 +24,19 @@ from parameter_server_distributed_tpu_torch.models.transformer import \
     causal_attention
 from parameter_server_distributed_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 GRAD_TOL = dict(rtol=5e-4, atol=1e-5)
 
 

@@ -28,6 +28,19 @@ from parameter_server_distributed_tpu.ops.pallas import \
     flash_attention as jax_flash
 from parameter_server_distributed_tpu_torch.ops import flash_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 KEY_TILE = 64   # keys per tile of the forward kernel
 
 # (BH, G, S, D): folded GQA shapes; S=200 leaves a ragged last tile in

@@ -22,6 +22,19 @@ from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
     import PallasOptimizer
 from parameter_server_distributed_tpu_torch.ops import fused_update as fu
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-5, atol=1e-7)
 SHAPES = {"w": (13, 7), "b": (5,), "e": (3, 4, 6)}
 

@@ -24,6 +24,19 @@ from parameter_server_distributed_tpu_torch.models import transformer as tt
 from parameter_server_distributed_tpu_torch.models.convert import \
     params_from_numpy
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -25,6 +25,7 @@ def _port_sources():
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "k5_compare.py")
+    yield os.path.join(REPO, "resnet_grad_conditioning.py")
 
 
 def _blocked(module: str) -> bool:
@@ -67,6 +68,14 @@ def test_delta_modules_are_scanned():
         "subscriber.py")} <= scanned
 
 
+def test_image_and_data_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("models", "resnet.py"),
+            os.path.join("models", "vit.py"),
+            os.path.join("data", "files.py"),
+            os.path.join("data", "text.py")} <= scanned
+
+
 def test_name_match_is_whole_name():
     assert _blocked("jax.numpy") and _blocked("parameter_server_distributed_tpu")
     assert not _blocked("parameter_server_distributed_tpu_torch.models")
@@ -87,6 +96,8 @@ def test_port_imports_and_serves_with_jax_blocked():
                 return None
 
         sys.meta_path.insert(0, Block())
+        import torch
+        torch.set_num_threads(2)   # tiny models: more threads cost time
         import parameter_server_distributed_tpu_torch as port
         for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
             importlib.import_module(info.name)
@@ -123,6 +134,21 @@ def test_port_imports_and_serves_with_jax_blocked():
         opt = device_optimizer.PallasOptimizer("adam", 1e-3, device="cpu")
         new = opt.apply(params, grads)
         assert loss > 0 and sorted(new) == sorted(params)
+        # the image rows build, and a tiny ResNet takes a step
+        for name in ("resnet18_cifar", "vit_tiny_cifar"):
+            image_model, images = get_model_and_batches(name, 2,
+                                                        device="cpu")
+            x, y = next(images)
+            assert x.shape == (2, 32, 32, 3)
+            assert image_model.num_params() > 2e6
+        from parameter_server_distributed_tpu_torch.models.resnet import \
+            ResNet
+        tiny = ResNet((1, 1), width=8)
+        image_trainer = Trainer(tiny, device="cpu")
+        image_grads, image_loss = image_trainer.compute_gradients(
+            image_trainer.init_params(0), (x[:, :8, :8], y))
+        assert image_loss > 0
+        assert sorted(image_grads) == sorted(tiny.param_shapes())
         # a two-worker, two-round PS session: coordinator, core, the
         # fused Adam apply, a checkpoint of the result
         import tempfile
@@ -231,8 +257,8 @@ def test_port_imports_and_serves_with_jax_blocked():
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)
-        print("served, trained, ran a PS session, a round over shm, "
-              "a followed version and a fleet stream")
+        print("served, trained an LM and a ResNet, ran a PS session, a "
+              "round over shm, a followed version and a fleet stream")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,

@@ -23,6 +23,18 @@ from parameter_server_distributed_tpu_torch.models import lora as tl
 from parameter_server_distributed_tpu_torch.models import transformer as tt
 
 
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _models(scan=False):
     jm = jt.Transformer(jt.TransformerConfig(
         vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=16,

@@ -177,16 +177,26 @@ def port_worker(coord_port: int, wid: int) -> Worker:
     return Worker(config, Trainer(model, device="cpu"), batches)
 
 
+# one JAX Trainer a worker id, compiled once and reused by the fleets
+# that run one after the other (never two workers on one trainer)
+_REF_TRAINERS: dict = {}
+
+
+def ref_trainer(wid: int) -> RefTrainer:
+    if wid not in _REF_TRAINERS:
+        _REF_TRAINERS[wid] = RefTrainer(ref_mlp.mnist_mlp(),
+                                        local_devices=jax.devices()[:1])
+    return _REF_TRAINERS[wid]
+
+
 def ref_worker(coord_port: int, wid: int) -> RefWorker:
     config = ref_config.WorkerConfig(
         coordinator_address=f"127.0.0.1:{coord_port}", worker_id=wid,
         batch_size=BATCH, model="mnist_mlp", wire_dtype="bf16",
         heartbeat_period_s=1.0)
-    model, batches = ref_registry.get_model_and_batches("mnist_mlp", BATCH,
-                                                        seed=wid)
-    return RefWorker(config, RefTrainer(model,
-                                        local_devices=jax.devices()[:1]),
-                     batches)
+    _, batches = ref_registry.get_model_and_batches("mnist_mlp", BATCH,
+                                                    seed=wid)
+    return RefWorker(config, ref_trainer(wid), batches)
 
 
 def fleet(start, port_side: bool, makers, init):
@@ -224,12 +234,19 @@ def fleet(start, port_side: bool, makers, init):
     return losses, shm_ok
 
 
+# the JAX-only fleet's (losses, shm flags), run once for both sides
+_JAX_FLEET: dict = {}
+
+
 @pytest.mark.parametrize("side", ["jax_services", "port_services"])
 def test_mixed_mnist_fleet_over_shm_tracks_jax_fleet(servers, monkeypatch,
                                                      side):
     monkeypatch.setenv("PSDT_SHM", "1")
     init = jax_store(ref_mlp.mnist_mlp())
-    base, base_shm = fleet(servers, False, [ref_worker, ref_worker], init)
+    if "run" not in _JAX_FLEET:
+        _JAX_FLEET["run"] = fleet(servers, False, [ref_worker, ref_worker],
+                                  init)
+    base, base_shm = _JAX_FLEET["run"]
     losses, shm_ok = fleet(servers, side == "port_services",
                            [port_worker, ref_worker], init)
     assert base_shm == [True, True] and shm_ok == [True, True]

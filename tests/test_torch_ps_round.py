@@ -3,7 +3,7 @@ a coordinator registers two workers, a PS core closes each barrier over
 their pushes through the fused Adam update, and each worker serves
 itself the fresh store, steps ``small_lm`` (f32, flash attention) on its
 own batch (the first of its registry stream, seeded with its id) and
-pushes — three rounds, the workers one after the other.
+pushes — two rounds, the workers one after the other.
 The JAX side runs its Trainer and core (the Pallas kernels in interpret
 mode, as tests/test_torch_trainer.py runs them), the port its Trainer
 and core on the CPU (the kernels' plain versions).  Both start from the
@@ -46,7 +46,20 @@ from parameter_server_distributed_tpu_torch.core.ps_core import \
 from parameter_server_distributed_tpu_torch.models import registry
 from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
 
-WORKERS, ROUNDS, BATCH = 2, 3, 2
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+WORKERS, ROUNDS, BATCH = 2, 2, 2
 RULES = {"momentum": dict(learning_rate=1e-2, momentum=0.9),
          "adam": dict(learning_rate=1e-3, eps=1e-6)}
 TOL = dict(rtol=1e-4, atol=1e-6)

@@ -16,6 +16,18 @@ from parameter_server_distributed_tpu.models import generation as jg
 from parameter_server_distributed_tpu_torch.models import generation as tg
 
 
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("vocab,seed", [(4, 0), (4, 1), (16, 2), (64, 3),
                                         (1024, 4)])
 def test_accept_or_resample_equals_jax(vocab, seed):

@@ -33,6 +33,19 @@ from parameter_server_distributed_tpu_torch.models import registry
 from parameter_server_distributed_tpu_torch.models import transformer as tt
 from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
 
+
+@pytest.fixture(autouse=True)
+def hygiene():
+    """torch on at most two intra-op threads: these tests' products are
+    small, and more threads only cost time where workers share cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 SAME_TOL = dict(rtol=1e-5, atol=1e-7)
 
@@ -67,6 +80,17 @@ def jax_trainer(model):
     return JaxTrainer(model, local_devices=jax.devices()[:1])
 
 
+_F32_JAX_TRAINER: list = []
+
+
+def f32_jax_trainer():
+    """The JAX trainer of the f32 model, compiled once for the tests that
+    step it one after the other."""
+    if not _F32_JAX_TRAINER:
+        _F32_JAX_TRAINER.append(jax_trainer(jax_model()))
+    return _F32_JAX_TRAINER[0]
+
+
 def assert_grads(got, ref, **tol):
     assert sorted(got) == sorted(ref)
     for k in ref:
@@ -77,7 +101,7 @@ def assert_grads(got, ref, **tol):
 
 def test_compute_gradients_matches_jax():
     store, batch = numpy_store(), tokens()
-    ref_g, ref_loss = jax_trainer(jax_model()).compute_gradients(store, batch)
+    ref_g, ref_loss = f32_jax_trainer().compute_gradients(store, batch)
     grads, loss = Trainer(port_model(), device="cpu").compute_gradients(
         store, batch)
     assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
@@ -186,7 +210,7 @@ def adam_loop(**opt_kw):
     device.  Returns (port params, JAX params)."""
     store = numpy_store(8)
     batches = [tokens(9 + i) for i in range(3)]
-    ref_t = jax_trainer(jax_model())
+    ref_t = f32_jax_trainer()
     ref_opt = JaxPallasOptimizer("adam", 1e-3, **opt_kw)
     trainer = Trainer(port_model(), device="cpu")
     opt = PallasOptimizer("adam", 1e-3, device="cpu", **opt_kw)
@@ -251,9 +275,13 @@ def test_registry_batches_match_jax():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         Trainer(port_model(), device="cpu", mesh_config=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_model_and_batches("small_lm", 2, data_path="x.bin",
-                                       device="cpu")
+    # file-backed data is ported: a missing shard is the JAX package's
+    # FileNotFoundError, at the first batch as there
+    batches = registry.get_model_and_batches("small_lm", 2,
+                                             data_path="x.bin",
+                                             device="cpu")[1]
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        next(batches)
     with pytest.raises(ValueError, match="unknown model"):
         registry.get_model("resnet18")
     with pytest.raises(ValueError, match="unknown dtype"):

@@ -136,15 +136,25 @@ def port_worker(coord_port: int, wid: int) -> Worker:
     return Worker(config, Trainer(model, device="cpu"), batches)
 
 
+# one JAX Trainer a worker id, compiled once and reused by the fleets
+# that run one after the other (never two workers on one trainer)
+_REF_TRAINERS: dict = {}
+
+
+def ref_trainer(wid: int) -> RefTrainer:
+    if wid not in _REF_TRAINERS:
+        _REF_TRAINERS[wid] = RefTrainer(ref_registry.get_model_and_batches(MODEL, BATCH)[0],
+                                        local_devices=jax.devices()[:1])
+    return _REF_TRAINERS[wid]
+
+
 def ref_worker(coord_port: int, wid: int) -> RefWorker:
     config = ref_config.WorkerConfig(
         coordinator_address=f"127.0.0.1:{coord_port}", worker_id=wid,
         batch_size=BATCH, model=MODEL, heartbeat_period_s=1.0)
-    model, batches = ref_registry.get_model_and_batches(MODEL, BATCH,
-                                                        seed=wid)
-    return RefWorker(config, RefTrainer(model,
-                                        local_devices=jax.devices()[:1]),
-                     batches)
+    _, batches = ref_registry.get_model_and_batches(MODEL, BATCH,
+                                                    seed=wid)
+    return RefWorker(config, ref_trainer(wid), batches)
 
 
 def run_fleet(workers, iterations: int) -> dict[int, list[float]]:
@@ -198,13 +208,18 @@ def jax_init():
             for k, v in model.init_params(0).items()}
 
 
+# the JAX-only fleet's (losses, store), run once for both sides
+_JAX_FLEET: dict = {}
+
+
 @pytest.mark.parametrize("side", ["jax_services", "port_services"])
 def test_mixed_fleet_tracks_jax_fleet(servers, jax_init, tmp_path,
                                       monkeypatch, side):
     monkeypatch.setenv("PSDT_SHM", "1")   # the JAX worker negotiates shm
-    base_losses, base_store, _ = fleet(servers, False,
-                                       [ref_worker, ref_worker], jax_init,
-                                       tmp_path / "base")
+    if "run" not in _JAX_FLEET:
+        _JAX_FLEET["run"] = fleet(servers, False, [ref_worker, ref_worker],
+                                  jax_init, tmp_path / "base")[:2]
+    base_losses, base_store = _JAX_FLEET["run"]
     losses, store, workers = fleet(servers, side == "port_services",
                                    [port_worker, ref_worker], jax_init,
                                    tmp_path / side)
@@ -292,6 +307,12 @@ def test_unported_options_name_their_items(monkeypatch):
                        ("--tiers", "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             worker_main.build_config(["127.0.0.1:1", "0", "1", flag])
+    # file-backed data and the image rows are ported
+    for model in ("resnet18_cifar", "resnet50_imagenet", "vit_tiny_cifar",
+                  "vit_s16_imagenet"):
+        config, _ = worker_main.build_config(
+            ["127.0.0.1:1", "0", "1", f"--model={model}", "--data=d.npz"])
+        assert (config.model, config.data_path) == (model, "d.npz")
     with pytest.raises(NotImplementedError, match="item 10"):
         Worker(port_config.WorkerConfig(wire_dtype="int8", device="cpu"),
                None, iter(()), start_heartbeat=False)
