@@ -77,7 +77,8 @@ two paths of the port:
   plane, which the same-host shared-memory rings carry with the native
   host codec (no process may fall back to gRPC or to the Python codec,
   each worker moves its pushes and pulls through the rings, and no
-  segment is left in /dev/shm), in two legs: the PS's pallas_adam after
+  segment is left in /dev/shm), in two legs run at once, and at once with
+  config 1's four below: the PS's pallas_adam after
   a host fold (2 rounds; its epoch-1 checkpoint held against ps_round's
   round-1 store) and --optimizer=sharded_adam under both device-close
   knobs (2 rounds; its epoch-1 checkpoint byte-identical to
@@ -87,12 +88,19 @@ two paths of the port:
 - BASELINE config 1 as the reference runs it: cli.ps_main (1 worker, its
   default optimizer, pallas_sgd), cli.coordinator_main and one
   cli.worker_main (mnist_mlp, batch 256, bf16 on the wire), a bootstrap
-  and 5 gradient rounds, in four legs (shm and the native codec; gRPC;
-  gRPC, the Python codec and the PS's plain host SGD; shm with
+  and 5 gradient rounds, in four legs run at once (shm and the native
+  codec; gRPC; gRPC, the Python codec and the PS's plain host SGD; shm with
   --optimizer=sharded_sgd and the device close, the bf16 pushes decoded
   on the card) whose checkpoints must be byte-identical, one fused_sgd
   launch per kernel apply, the device close's launches and a falling
   loss;
+- BASELINE config 3 (config3_wire): four cli.ps_main shards behind
+  cli.coordinator_main --ps-shards and CONFIG3["workers"] mlp_1b workers
+  (batch 2048, bf16 on the wire, 3 rounds), the store split by
+  shard_owner (each shard's exit store its names, one fused_sgd launch
+  a shard an apply, whole pulls, the rings and the native codec, a
+  falling loss), beside an exact leg: one mnist_mlp worker over four
+  shards whose merged checkpoints hold config 1 leg (a)'s bytes;
 - the 1.34B-parameter MLP (mlp_1b, bf16, batch 2048): 3
   Trainer.compute_gradients -> PallasOptimizer("adam") steps on one
   batch, the loss falling, one Adam launch per apply, the first apply
@@ -103,7 +111,11 @@ The build phase also builds the host C++ library (native/psdt_native.cpp,
 g++) that the wire phases' codec and rings run on.  Each path's launch
 counts are set to 0 just before it runs and read just after (a process
 of the wire phases counts from 0 and reports at exit), and must equal
-the expected counts.  Each phase prints one JSON
+the expected counts.  Phases that start processes of their own run
+beside others where the card's and the host's memory allow (the wire
+round's two legs with config 1's four, config 2 beside this process's
+1B MLP and image rows, config 3's exact leg beside its big leg), so
+their times are taken beside each other's.  Each phase prints one JSON
 line; any failure exits non-zero before the last line, which is
 ``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero
 without one.
@@ -2806,7 +2818,7 @@ def fleet_update(torch, np, rng) -> dict:
 # serve_main following it (fleet mode, int8 weights and cache); the worker's
 # rounds, then a wait for its first two closes without a subscriber; the
 # burst's streams and tokens; the phase's wall-clock limit
-FOLLOW = dict(rounds=11, unfed_rounds=3, lr=1e-3, streams=8, max_new=640,
+FOLLOW = dict(rounds=9, unfed_rounds=2, lr=1e-3, streams=8, max_new=640,
               limit_s=300.0)
 
 
@@ -3920,8 +3932,24 @@ def check_device_apply(torch, np, shapes, gen) -> tuple[dict, dict]:
     plain = cuda_ms(torch, lambda: da.topk_scatter_reference(idx, vals,
                                                              total), iters=3)
     b_ms, b_by = bound(total, 4 * total + 6 * k, "float32")
-    times["topk_scatter"] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                 bound_ms=b_ms, bound_by=b_by)
+    # the library's scatter, timed as the kernel is beside it: a cold L2
+    # in a CUDA graph (cold_ms), index_put_ of the f32 values at int64
+    # indices into a zeroed f32 tensor (the inputs widened beforehand)
+    idx64, vals32 = idx.long(), vals.float()
+    lib_out = torch.zeros(total, dtype=torch.float32,
+                          device="cuda").index_put_((idx64,), vals32)
+    checks["topk_index_put"] = bits_equal(torch, lib_out, want)
+    del lib_out
+    cold = {"ms": cold_ms(torch, lambda c: da.topk_scatter(c[0], c[1],
+                                                           total),
+                          (idx, vals)),
+            "library_ms": cold_ms(torch, lambda c: torch.zeros(
+                total, dtype=torch.float32, device="cuda").index_put_(
+                    (c[0],), c[1]), (idx64, vals32)),
+            "library": "torch.zeros(n).index_put_((int64 idx,), f32 values)"}
+    times["topk_scatter"] = dict(ms=ms, plain_ms=plain,
+                                 library_ms=cold["library_ms"],
+                                 bound_ms=b_ms, bound_by=b_by, cold_l2=cold)
     report["topk_scatter"] = {"elements": total, "kept": k,
                               **times["topk_scatter"]}
     emit({"phase": "device_apply_kernels", "elements": n,
@@ -4226,20 +4254,35 @@ def _spawner(tmp: str, env: dict):
 def _run_round(spawn, ps_args: list, workers_args: list, limit_s: float
                ) -> tuple[float, int]:
     """A PS (``ps_args``), a coordinator and one worker per entry of
-    ``workers_args`` as children; waits for the workers, then stops the
-    PS and the coordinator with SIGTERM.  Fails if a child exits
-    non-zero or the round outlives ``limit_s``; kills every child on the
-    way out.  Returns (wall seconds to the workers' end, the PS's pid)."""
+    ``workers_args`` as children (``_run_cluster`` with one shard).
+    Returns (wall seconds to the workers' end, the PS's pid)."""
+    wall, pids = _run_cluster(spawn, [ps_args], workers_args, limit_s)
+    return wall, pids[0]
+
+
+def _run_cluster(spawn, shard_args: list, workers_args: list,
+                 limit_s: float) -> tuple[float, list]:
+    """One PS per entry of ``shard_args`` (its arguments, all started at
+    once), a coordinator naming the first as its PS and the others in
+    --ps-shards, and one worker per entry of ``workers_args`` (started at
+    once) as children; waits for the workers, then stops the PSs and the
+    coordinator with SIGTERM.  Fails if a child exits non-zero or the
+    round outlives ``limit_s``; kills every child on the way out.
+    Returns (wall seconds to the workers' end, the PSs' pids)."""
     import signal
 
     deadline = time.monotonic() + limit_s
     t0 = time.perf_counter()
     try:
-        ps, ps_log = spawn("ps_main", "127.0.0.1:0", *ps_args)
-        ps_port = _wait_line(ps_log, r"Parameter server listening on "
-                             r"[\d.]+:(\d+)", ps, deadline)
+        shards = [spawn("ps_main", "127.0.0.1:0", *args)
+                  for args in shard_args]
+        ports = [_wait_line(log, r"Parameter server listening on "
+                            r"[\d.]+:(\d+)", ps, deadline)
+                 for ps, log in shards]
+        more = [f"--ps-shards={','.join(f'127.0.0.1:{p}' for p in ports[1:])}"
+                ] if len(ports) > 1 else []
         coord, coord_log = spawn("coordinator_main", "127.0.0.1:0",
-                                 f"127.0.0.1:{ps_port}")
+                                 f"127.0.0.1:{ports[0]}", *more)
         coord_port = _wait_line(coord_log, r"Coordinator server listening "
                                 r"on [\d.]+:(\d+)", coord, deadline)
         children = [spawn("worker_main", f"127.0.0.1:{coord_port}", *args)
@@ -4250,12 +4293,18 @@ def _run_round(spawn, ps_args: list, workers_args: list, limit_s: float
             except subprocess.TimeoutExpired:
                 fail(f"a worker outlived the phase's {limit_s} s")
             if rc != 0:
-                with open(log) as f, open(ps_log) as g:
+                tails = []
+                for ps, ps_log in shards:
+                    with open(ps_log) as g:
+                        tails.append(f"a PS (exit {ps.poll()}): "
+                                     f"{g.read()[-6000 // len(shards):]}")
+                with open(log) as f:
                     fail(f"worker exited {rc}: {f.read()[-3000:]}\n"
-                         f"the PS (exit {ps.poll()}): {g.read()[-6000:]}")
+                         + "\n".join(tails))
         wall = time.perf_counter() - t0
-        for proc, log in ((ps, ps_log), (coord, coord_log)):
+        for proc, log in (*shards, (coord, coord_log)):
             proc.send_signal(signal.SIGTERM)
+        for proc, log in (*shards, (coord, coord_log)):
             try:
                 rc = proc.wait(timeout=120.0)
             except subprocess.TimeoutExpired:
@@ -4268,7 +4317,7 @@ def _run_round(spawn, ps_args: list, workers_args: list, limit_s: float
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60.0)
-    return wall, ps.pid
+    return wall, [ps.pid for ps, _ in shards]
 
 
 def shm_left(pid: int) -> list[str]:
@@ -4515,12 +4564,41 @@ def _wire_round_in(tmp: str, spawn, np, round1, in_process,
     return launches
 
 
+def in_parallel(thunks: dict, here: str | None = None) -> dict:
+    """Run the thunks all at once, each on a thread of its own but the one
+    keyed ``here``, which runs on the calling thread (this process's own
+    card work, the profiler); their results by key.  A thunk that raised
+    (a ``fail`` included) raises again here, the first by key order, once
+    every thread has ended."""
+    results, errors = {}, {}
+
+    def run(key, fn):
+        try:
+            results[key] = fn()
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            errors[key] = exc
+
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in thunks.items() if item[0] != here]
+    for t in threads:
+        t.start()
+    if here is not None:
+        run(here, thunks[here])
+    for t in threads:
+        t.join()
+    for key in thunks:
+        if key in errors:
+            raise errors[key]
+    return results
+
+
 def config1_wire(np) -> dict:
     """BASELINE config 1 as the reference runs it: cli.ps_main (1 worker,
     no --optimizer, so its default pallas_sgd, lr CONFIG1["lr"], a
     checkpoint every iteration), cli.coordinator_main and one
     cli.worker_main (mnist_mlp, batch 256, bf16 on the wire), all on the
-    card; a bootstrap and 5 gradient rounds.  Four legs: (a) the
+    card; a bootstrap and 5 gradient rounds.  Four legs, run at once
+    (each its own processes, files and free ports): (a) the
     defaults, the shared-memory rings and the native codec; (b)
     PSDT_SHM=0, gRPC; (c) PSDT_SHM=0 PSDT_NATIVE=0 and --optimizer=sgd,
     gRPC, the Python codec and the PS's plain host SGD in numpy; (d) the
@@ -4535,7 +4613,7 @@ def config1_wire(np) -> dict:
     launch per apply (as ops.fused_update.plan gives), that of leg (c)
     none, that of leg (d) the device close's launches and no fallback.
     Returns the launch counts of legs (a) and (d), summed over their
-    processes."""
+    processes, and leg (a)'s checkpoint files, epoch by epoch."""
     import hashlib
     import shutil
     import tempfile
@@ -4576,15 +4654,9 @@ def config1_wire(np) -> dict:
            "host sgd in the last leg", "lr": lr, "wire": "bf16", "legs": {}}
     ckpts, faults, launches_a = {}, [], None
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    for leg, (extra, opt_args) in legs.items():
-        device = "PSDT_DEVICE_APPLY" in extra
-        expected_ps = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                       "flash_bwd_dkv": 0, "fused_momentum": 0,
-                       "fused_adam": 0, "fused_sgd": 0 if opt_args
-                       else per_apply * rounds,
-                       **(device_launches if device
-                          else dict.fromkeys(da.launches, 0)),
-                       **dict.fromkeys(i8.launches, 0)}
+
+    def run_leg(leg: str) -> tuple:
+        extra, opt_args = legs[leg]
         tmp = tempfile.mkdtemp(prefix=f"config1-{leg}-",
                                dir=os.path.join(HERE, "build"))
         try:
@@ -4597,22 +4669,34 @@ def config1_wire(np) -> dict:
                 [["0", str(rounds + 1), "--model=mnist_mlp", f"--batch={b}",
                   "--wire=bf16", f"--report={tmp}/worker-0.json"]],
                 CONFIG1_LIMIT_S)
-            reports = {}
-            for role, name in (("ps", "ps.json"), ("worker 0",
-                                                    "worker-0.json")):
-                with open(os.path.join(tmp, name)) as f:
-                    reports[role] = json.load(f)
+            reports = read_reports(tmp, {"ps": "ps.json",
+                                         "worker 0": "worker-0.json"})
             with open(os.path.join(tmp, "metrics-0.jsonl")) as f:
                 records = [json.loads(line) for line in f]
-            ckpts[leg] = []
+            files = []
             for e in range(rounds + 1):
                 with open(os.path.join(ckpt_dir,
                                        f"checkpoint_epoch_{e}.ckpt"),
                           "rb") as f:
-                    ckpts[leg].append(f.read())
-            left = shm_left(ps_pid)
+                    files.append(f.read())
+            return wall, reports, records, files, shm_left(ps_pid)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    # the legs are independent clusters of tiny processes: they run at
+    # once, so their round times are taken beside each other's
+    results = in_parallel({leg: (lambda leg=leg: run_leg(leg))
+                           for leg in legs})
+    for leg, (extra, opt_args) in legs.items():
+        device = "PSDT_DEVICE_APPLY" in extra
+        expected_ps = {"flash_fwd": 0, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0, "fused_momentum": 0,
+                       "fused_adam": 0, "fused_sgd": 0 if opt_args
+                       else per_apply * rounds,
+                       **(device_launches if device
+                          else dict.fromkeys(da.launches, 0)),
+                       **dict.fromkeys(i8.launches, 0)}
+        wall, reports, records, ckpts[leg], left = results[leg]
         shm = leg.startswith("shm_")
         leg_faults = transport_faults(reports, shm=shm,
                                       native=not extra.get("PSDT_NATIVE"))
@@ -4677,7 +4761,7 @@ def config1_wire(np) -> dict:
         fail("config1_wire: the legs' checkpoints differ: "
              + json.dumps({leg: v["checkpoint_sha256"]
                            for leg, v in out["legs"].items()}))
-    return launches_a
+    return launches_a, ckpts["shm_native"]
 
 
 # BASELINE config 2 (1 PS / 4 workers, async-SGD CIFAR-10 ResNet-18) as
@@ -5065,6 +5149,434 @@ def config2_wire(np, workers: int = CONFIG2["workers"],
     return launches
 
 
+# BASELINE config 3 ("4 PS shards / 8 workers, 1B MLP sharded push/pull",
+# BASELINE.md:33) as the reference runs it: four cli.ps_main shards behind
+# cli.coordinator_main --ps-shards, mlp_1b workers at batch 2048 with bf16
+# on the wire, the synchronous barrier; a bootstrap, then ``rounds``
+# gradient rounds.  Each batch is fresh random data (registry
+# _mlp_1b_batches), so the loss falls only as SGD shrinks the init's
+# logits: at lr 2^-7 by 0.03-0.05 in two steps on the card, within a
+# batch's noise; 2^-4 (PERF.md §4).  ``workers``: what one card holds of
+# BASELINE's 8 (config3_probe.py; PERF.md §4); ``threads``: torch's
+# intra-op threads a process (the processes share the host's 8 cores)
+CONFIG3 = dict(shards=4, workers=2, batch=2048, rounds=3, lr=2.0 ** -4,
+               threads=2)
+CONFIG3_WORKERS_SET_BY = (
+    "the card: one wire worker takes 21.7 GB (allocator peak) and 23.6 GB "
+    "of the card with its share of contexts and caches, the four shards "
+    "23.9 GB, so 2 workers fit in 90 % of the card's 85.5 GB and 3 do "
+    "not; the host's memory would hold 3 (config3_probe.py)")
+CONFIG3_LIMIT_S = 420.0   # the big leg's wall-clock limit, children included
+
+
+def read_reports(tmp: str, names: dict) -> dict:
+    """role -> the exit report ``tmp/<file>`` for each (role, file)."""
+    out = {}
+    for role, name in names.items():
+        with open(os.path.join(tmp, name)) as f:
+            out[role] = json.load(f)
+    return out
+
+
+def config3_wire(np, reference_ckpts: list, workers: int = CONFIG3["workers"],
+                 batch: int = CONFIG3["batch"],
+                 rounds: int = CONFIG3["rounds"], model: str = "mlp_1b",
+                 device_args: tuple = ()) -> dict:
+    """BASELINE config 3: the big leg (``config3_big``) and the exact leg
+    (``config3_exact``, against ``reference_ckpts``) at once: the exact
+    leg's tiny processes are done while the big leg's start up and
+    bootstrap, before its rounds.  Returns the launch counts summed over
+    both legs' processes."""
+    legs = in_parallel({
+        "big": lambda: config3_big(np, workers, batch, rounds, model,
+                                   device_args),
+        "exact": lambda: config3_exact(np, reference_ckpts, device_args)})
+    launches = dict(legs["big"][0])
+    for name, v in legs["exact"].items():
+        launches[name] = launches.get(name, 0) + v
+    return launches
+
+
+class MemorySampler:
+    """While its block runs, a thread reads every ``period_s`` the card
+    memory in use by every process (nvidia-smi's memory.used), the
+    host's available memory (/proc/meminfo MemAvailable) and the resident
+    memory (VmRSS) of each process ``pids()`` lists; ``peaks()`` gives the
+    most card memory used, the least host memory available and each
+    process's largest RSS seen, in GB, with the card's total.  A sampled
+    RSS is the host peak of a child where the kernel keeps no VmHWM (the
+    exit report's fallback, ru_maxrss, carries the parent's size)."""
+
+    def __init__(self, period_s: float = 0.5, pids=lambda: ()):
+        self.period_s = period_s
+        self.pids = pids
+        self.card_used_mib: list[int] = []
+        self.card_total_mib = 0
+        self.host_avail_kib: list[int] = []
+        self.rss_kib: dict[int, int] = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self) -> None:
+        try:
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=10).stdout.split("\n")[0].split(",")
+            self.card_used_mib.append(int(out[0]))
+            self.card_total_mib = int(out[1])
+        except (OSError, ValueError, IndexError,
+                subprocess.TimeoutExpired):
+            pass
+        try:
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    if line.startswith("MemAvailable:"):
+                        self.host_avail_kib.append(int(line.split()[1]))
+        except OSError:
+            pass
+        for pid in list(self.pids()):
+            try:
+                with open(f"/proc/{pid}/status") as f:
+                    for line in f:
+                        if line.startswith("VmRSS:"):
+                            self.rss_kib[pid] = max(self.rss_kib.get(pid, 0),
+                                                    int(line.split()[1]))
+            except (OSError, ValueError):
+                pass   # not started yet, or gone
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period_s):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=30.0)
+
+    def peaks(self) -> dict:
+        return {"card_used_gb_max": max(self.card_used_mib, default=0)
+                * 2 ** 20 / 1e9,
+                "card_used_gb_at_start": (self.card_used_mib or [0])[0]
+                * 2 ** 20 / 1e9,
+                "card_total_gb": self.card_total_mib * 2 ** 20 / 1e9,
+                "host_available_gb_min": min(self.host_avail_kib, default=0)
+                * 1024 / 1e9,
+                "host_available_gb_at_start": (self.host_avail_kib or [0])[0]
+                * 1024 / 1e9,
+                "rss_gb_max_by_pid": {pid: kib * 1024 / 1e9
+                                      for pid, kib in self.rss_kib.items()},
+                "samples": len(self.card_used_mib)}
+
+
+def config3_big(np, workers: int, batch: int, rounds: int, model: str,
+                device_args: tuple = ()) -> tuple[dict, dict]:
+    """BASELINE config 3 as the reference runs it, every process a port
+    CLI on the card: CONFIG3["shards"] cli.ps_main shards (``workers``
+    workers each, their default optimizer pallas_sgd, lr CONFIG3["lr"],
+    a checkpoint directory each), cli.coordinator_main --ps-shards, and
+    ``workers`` cli.worker_main processes (mlp_1b, batch 2048, bf16 on
+    the wire, the default barrier, the rings and the native codec), each
+    a bootstrap and ``rounds`` gradient rounds; torch at
+    CONFIG3["threads"] intra-op threads a process.  The store splits as
+    ``shard_owner`` places it, unevenly: for mlp_1b shard 1 holds twice
+    the others' elements.
+
+    Held: each shard's exit store holds exactly the names shard_owner
+    gives it and their union is the model; every worker's pull after the
+    bootstrap is whole (no reseed, no partial pull); each shard launches
+    fused_sgd once per applied round (as ops.fused_update.plan gives for
+    its partition) and nothing else runs a kernel; no process falls back
+    to gRPC or resolves the Python codec, each worker moves at least 2 B
+    a parameter each way each round through the rings and each shard 2 B
+    a parameter of its partition each way each round a worker, and no
+    segment is left; every worker's loss after its last round is below
+    its first; every child exits 0.  Prints per round the slowest
+    worker's times, per shard its apply, serve and barrier-close times
+    and its ring rate, grad-samples/s, peak card memory and host RSS a
+    process, the card memory in use and the host memory available at
+    their extremes (``MemorySampler``), the worker count and what set
+    it.  ``device_args`` (e.g. ("--device=cpu",)) goes to every PS and
+    worker.  Returns the launch counts summed over the processes and the
+    printed line."""
+    import shutil
+    import tempfile
+
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.ops import device_apply as da
+    from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+    from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
+    from parameter_server_distributed_tpu_torch.worker.ps_shards import \
+        shard_owner
+
+    n, lr = CONFIG3["shards"], CONFIG3["lr"]
+    shapes = {k: tuple(v) for k, v in get_model(model).param_shapes().items()}
+    parts = [{k: v for k, v in shapes.items() if shard_owner(k, n) == i}
+             for i in range(n)]
+    elements = [sum(math.prod(v) for v in part.values()) for part in parts]
+    total = sum(elements)
+    # a CPU rehearsal's children launch no kernel
+    per_apply = [update_launches(fu, part) if part and not device_args
+                 else 0 for part in parts]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="config3-", dir=os.path.join(HERE, "build"))
+    try:
+        env = child_env(tmp, OMP_NUM_THREADS=str(CONFIG3["threads"]))
+        spawn = _spawner(tmp, env)
+        t0 = time.perf_counter()
+        with MemorySampler(pids=lambda: [p.pid for p in spawn.procs]
+                           ) as memory:
+            wall, pids = _run_cluster(
+                spawn,
+                [[str(workers), "1000", f"--lr={lr}",
+                  f"--ckpt-dir={tmp}/ck{i}", f"--report={tmp}/ps-{i}.json",
+                  *device_args] for i in range(n)],
+                [[str(w), str(rounds + 1), f"--model={model}",
+                  f"--batch={batch}", "--wire=bf16",
+                  f"--report={tmp}/worker-{w}.json", *device_args]
+                 for w in range(workers)], CONFIG3_LIMIT_S)
+        phase_s = time.perf_counter() - t0
+        reports = read_reports(tmp, {
+            **{f"shard {i}": f"ps-{i}.json" for i in range(n)},
+            **{f"worker {w}": f"worker-{w}.json" for w in range(workers)}})
+        records, reseeds = {}, {}
+        for w in range(workers):
+            with open(os.path.join(tmp, f"metrics-{w}.jsonl")) as f:
+                records[w] = [json.loads(line) for line in f]
+            # the spawner names logs by start order: the shards, the
+            # coordinator, then the workers
+            with open(os.path.join(tmp, f"worker_main-{n + 1 + w}.log")) as f:
+                text = f.read()
+            reseeds[w] = text.count("re-seeding") + text.count("re-pulling")
+        left = [seg for pid in pids for seg in shm_left(pid)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    faults = transport_faults(reports, shm=True, native=True)
+    if left:
+        faults.append(f"segments left: {left}")
+    stores = [reports[f"shard {i}"].get("store") or {} for i in range(n)]
+    placed = [{k: tuple(v) for k, v in st.items()} for st in stores]
+    if placed != parts:
+        faults.append(f"shard stores {[sorted(p) for p in placed]} are not "
+                      f"shard_owner's {[sorted(p) for p in parts]}")
+    merged = {k: v for p in placed for k, v in p.items()}
+    if merged != shapes:
+        faults.append("the shards' union is not the model")
+    launches = dict.fromkeys(list(fu.launches) + list(da.launches)
+                             + list(i8.launches), 0)
+    for i in range(n):
+        got = reports[f"shard {i}"]["launches"]
+        want = {**dict.fromkeys(got, 0), "fused_sgd": per_apply[i] * rounds}
+        if got != want:
+            faults.append(f"shard {i} launches {got} != {want}")
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+    per_round_floor = 2 * 2 * total          # 2 B a parameter each way
+    shard_floor = [2 * 2 * e * workers * rounds for e in elements]
+    ring = {role: r["counters"].get("rpc.shm.bytes", 0)
+            for role, r in reports.items()}
+    losses, peak = {}, {}
+    for w in range(workers):
+        r = reports[f"worker {w}"]
+        if any(r["launches"].values()):
+            faults.append(f"worker {w} launches {r['launches']}")
+        if ring[f"worker {w}"] < per_round_floor * rounds:
+            faults.append(f"worker {w} moved {ring[f'worker {w}']} ring "
+                          f"bytes, under {per_round_floor * rounds}")
+        boot = [rec["step"] for rec in records[w] if rec.get("bootstrap")]
+        if boot != [0] or reseeds[w]:
+            faults.append(f"worker {w}: bootstraps at {boot}, {reseeds[w]} "
+                          f"reseed or partial-pull lines")
+        losses[w] = [rec["loss"] for rec in records[w]
+                     if not rec.get("bootstrap")]
+        if len(losses[w]) != rounds or not all(
+                math.isfinite(x) for x in losses[w]) or \
+                losses[w][-1] >= losses[w][0]:
+            faults.append(f"worker {w} losses not finite and falling: "
+                          f"{losses[w]}")
+    for i in range(n):
+        if ring[f"shard {i}"] < shard_floor[i]:
+            faults.append(f"shard {i} moved {ring[f'shard {i}']} ring bytes, "
+                          f"under {shard_floor[i]}")
+    peaks = memory.peaks()
+    rss = peaks.pop("rss_gb_max_by_pid")
+    # per round, the slowest worker's times; the rounds' span
+    by_round = {}
+    for it in range(1, rounds + 1):
+        recs = [rec for w in range(workers) for rec in records[w]
+                if rec["step"] == it]
+        by_round[it] = {key: max(rec.get(key, 0.0) for rec in recs)
+                        for key in ("step_time_s", "compute_s", "fused_s",
+                                    "pull_s")}
+    starts = [rec["t"] - rec["step_time_s"] for w in range(workers)
+              for rec in records[w] if not rec.get("bootstrap")]
+    ends = [rec["t"] for w in range(workers) for rec in records[w]]
+    span = max(ends) - min(starts)
+    fused_span = sum(v["fused_s"] for v in by_round.values())
+    out = {"phase": "config3_wire", "leg": model, "card": nvidia_smi(),
+           "model": model, "params": total, "shards": n,
+           "partition_elements": elements,
+           "partition_names": [sorted(p) for p in parts],
+           "workers": workers, "workers_set_by": CONFIG3_WORKERS_SET_BY,
+           "batch": batch, "rounds": rounds, "lr": lr, "wire": "bf16",
+           "optimizer": "pallas_sgd (ps_main default)",
+           "torch_threads": CONFIG3["threads"], "wall_s": wall,
+           "phase_s": phase_s, "per_round_slowest_worker": by_round,
+           "grad_samples_per_s": workers * batch * rounds / span,
+           "train_span_s": span,
+           "shards_detail": {i: {
+               "elements": elements[i],
+               "apply_s": reports[f"shard {i}"]["histograms"].get(
+                   "ps.apply_s"),
+               "serve_s": reports[f"shard {i}"]["histograms"].get(
+                   "ps.serve_s"),
+               "serve_encode_s": reports[f"shard {i}"]["histograms"].get(
+                   "ps.serve.encode_s"),
+               "barrier_close_s": reports[f"shard {i}"]["histograms"].get(
+                   "ps.barrier_close_s"),
+               "ring_bytes": ring[f"shard {i}"],
+               "ring_gb_per_fused_s": ring[f"shard {i}"] / 1e9 / fused_span
+               if fused_span else None} for i in range(n)},
+           "ring_bytes": ring, "ring_floor_per_worker":
+               per_round_floor * rounds, "ring_floor_per_shard": shard_floor,
+           "losses": losses,
+           "peak_mem_gb": {k: r["peak_mem_bytes"] / 1e9
+                           for k, r in reports.items()},
+           "peak_rss_gb": {k: r["peak_rss_bytes"] / 1e9
+                           for k, r in reports.items()},
+           "peak_rss_source": {k: r.get("peak_rss_source")
+                               for k, r in reports.items()},
+           # the spawner's order: the shards, the coordinator, the workers
+           "peak_rss_sampled_gb": dict(zip(
+               [f"shard {i}" for i in range(n)] + ["coordinator"]
+               + [f"worker {w}" for w in range(workers)],
+               [rss.get(p.pid) for p in spawn.procs])),
+           "memory_sampled": peaks,
+           "shm_fallback": {k: r["counters"].get("rpc.shm.fallback")
+                            for k, r in reports.items()},
+           "codec_native": {k: r["gauges"].get("rpc.codec.native")
+                            for k, r in reports.items()},
+           "launches": {k: {name: v for name, v in r["launches"].items()
+                            if v} for k, r in reports.items()},
+           "segments_left": left}
+    emit(out)
+    if faults:
+        fail(f"config3_wire: {faults}")
+    return launches, out
+
+
+def config3_exact(np, reference_ckpts: list, device_args: tuple = ()
+                  ) -> dict:
+    """config3_wire's exact leg: one mnist_mlp worker over
+    CONFIG3["shards"] cli.ps_main shards at config1_wire's settings
+    (batch 256, bf16 on the wire, pallas_sgd at CONFIG1["lr"], seed 0, a
+    checkpoint every iteration, CONFIG1["rounds"] rounds), where
+    shard_owner leaves shards 0 and 3 nothing.  A one-worker fold has no
+    order to vary, so every epoch's four checkpoints, merged, must hold
+    tensor for tensor the bytes of ``reference_ckpts`` (config1_wire leg
+    a's single-PS files); each shard launches fused_sgd once per apply
+    of a partition that is not empty; the rings and the native codec
+    everywhere, no segment left, the loss falling.  Returns the launch
+    counts summed over the processes."""
+    import shutil
+    import tempfile
+
+    from parameter_server_distributed_tpu_torch.checkpoint import codec
+    from parameter_server_distributed_tpu_torch.models.mlp import mnist_mlp
+    from parameter_server_distributed_tpu_torch.ops import fused_update as fu
+    from parameter_server_distributed_tpu_torch.worker.ps_shards import \
+        shard_owner
+
+    n, b, rounds, lr = (CONFIG3["shards"], CONFIG1["batch"],
+                        CONFIG1["rounds"], CONFIG1["lr"])
+    shapes = mnist_mlp().param_shapes()
+    parts = [{k: v for k, v in shapes.items() if shard_owner(k, n) == i}
+             for i in range(n)]
+    per_apply = [update_launches(fu, part) if part and not device_args
+                 else 0 for part in parts]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="config3-exact-",
+                           dir=os.path.join(HERE, "build"))
+    try:
+        wall, pids = _run_cluster(
+            _spawner(tmp, child_env(tmp)),
+            [["1", "1", f"--lr={lr}", f"--ckpt-dir={tmp}/ck{i}",
+              f"--report={tmp}/ps-{i}.json", *device_args]
+             for i in range(n)],
+            [["0", str(rounds + 1), "--model=mnist_mlp", f"--batch={b}",
+              "--wire=bf16", f"--report={tmp}/worker-0.json", *device_args]],
+            CONFIG1_LIMIT_S)
+        reports = read_reports(tmp, {
+            **{f"shard {i}": f"ps-{i}.json" for i in range(n)},
+            "worker 0": "worker-0.json"})
+        with open(os.path.join(tmp, "metrics-0.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        epochs = []
+        for e in range(rounds + 1):
+            merged, headers = {}, set()
+            for i in range(n):
+                epoch, iteration, store = codec.load(os.path.join(
+                    tmp, f"ck{i}", f"checkpoint_epoch_{e}.ckpt"))
+                headers.add((epoch, iteration))
+                merged.update(store)
+            epochs.append((headers, merged))
+        left = [seg for pid in pids for seg in shm_left(pid)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    faults = transport_faults(reports, shm=True, native=True)
+    if left:
+        faults.append(f"segments left: {left}")
+    if reports["worker 0"]["counters"].get("rpc.shm.bytes", 0) <= 0:
+        faults.append("worker 0 moved no ring bytes")
+    launches: dict = {}
+    for i in range(n):
+        got = reports[f"shard {i}"]["launches"]
+        want = {**dict.fromkeys(got, 0), "fused_sgd": per_apply[i] * rounds}
+        if got != want:
+            faults.append(f"shard {i} launches {got} != {want}")
+        if sorted(reports[f"shard {i}"].get("store") or {}) != \
+                sorted(parts[i]):
+            faults.append(f"shard {i} holds "
+                          f"{sorted(reports[f'shard {i}'].get('store'))}")
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+    identical, differing = True, {}
+    for e, ((headers, merged), ref) in enumerate(zip(epochs,
+                                                      reference_ckpts)):
+        r_epoch, r_iteration, want = codec.loads(ref)
+        bad = sorted(k for k in set(want) | set(merged)
+                     if k not in want or k not in merged
+                     or merged[k].tobytes() != want[k].tobytes())
+        if bad or headers != {(r_epoch, r_iteration)}:
+            identical = False
+            differing[e] = {"tensors": bad, "headers": sorted(headers)}
+    if len(reference_ckpts) != rounds + 1:
+        identical = False
+    losses = [r["loss"] for r in records if r["step"] >= 1]
+    if len(losses) != rounds or not all(math.isfinite(x) for x in losses) \
+            or losses[-1] >= losses[0]:
+        faults.append(f"losses not finite and falling: {losses}")
+    emit({"phase": "config3_wire", "leg": "mnist_mlp_exact", "shards": n,
+          "partition_names": [sorted(p) for p in parts], "batch": b,
+          "rounds": rounds, "lr": lr, "wall_s": wall, "losses": losses,
+          "checkpoints_identical_to_config1_leg_a": identical,
+          "differing": differing,
+          "launches": {k: {name: v for name, v in r["launches"].items()
+                           if v} for k, r in reports.items()},
+          "segments_left": left})
+    if faults:
+        fail(f"config3_wire exact leg: {faults}")
+    if not identical:
+        fail(f"config3_wire: the sharded checkpoints differ from config1 "
+             f"leg a's: {differing}")
+    return launches
+
+
 def first_adam_vs_plain(torch, np, fu, before, grads, after,
                         opt) -> dict:
     """The first Adam apply of a store, tensor by tensor: the params and
@@ -5322,35 +5834,53 @@ def main() -> int:
                                                                 fa)
     emit({"phase": "ps_device_rounded",
           "elapsed_s": time.perf_counter() - t_start})
-    wire_launches = ps_wire_round(np, round1, in_process, "host")
-    del round1
-    device_wire = ps_wire_round(np, device_round1, device_in, "device")
-    del device_round1
-    for name, n in device_wire.items():
+    # the wire round's two legs and config 1's four, each its own cluster
+    # of processes, run at once (their round times taken beside each
+    # other's; the checks are each leg's own)
+    wire = in_parallel({
+        "host": lambda: ps_wire_round(np, round1, in_process, "host"),
+        "device": lambda: ps_wire_round(np, device_round1, device_in,
+                                        "device"),
+        "config1": lambda: config1_wire(np)})
+    del round1, device_round1
+    wire_launches = dict(wire["host"])
+    for name, n in wire["device"].items():
         wire_launches[name] = wire_launches.get(name, 0) + n
-    emit({"phase": "ps_wire_rounded",
+    config1_launches, config1_ckpts = wire["config1"]
+    emit({"phase": "ps_wire_and_config1_done",
           "elapsed_s": time.perf_counter() - t_start})
-    config1_launches = config1_wire(np)
-    emit({"phase": "config1_done",
-          "elapsed_s": time.perf_counter() - t_start})
-    mlp_launches = mlp_train(torch, np, fa, fu)
-    torch.cuda.empty_cache()
-    emit({"phase": "mlp_trained", "elapsed_s": time.perf_counter() - t_start})
-    # the image rows in process: no kernel of the port runs there
     from parameter_server_distributed_tpu_torch.ops import device_apply as da
     from parameter_server_distributed_tpu_torch.ops import int8_serve as i8
-    for mod in (fa, fu, da, i8):
-        mod.reset_launches()
-    image_rows(torch, np)
-    image_launches = {**fa.launches, **fu.launches, **da.launches,
-                      **i8.launches}
-    if any(image_launches.values()):
-        fail(f"image_rows launched {image_launches}")
-    torch.cuda.empty_cache()
-    emit({"phase": "image_rows_done",
-          "elapsed_s": time.perf_counter() - t_start})
-    config2_launches = config2_wire(np)
+
+    def mlp_and_image_rows() -> tuple[dict, dict]:
+        mlp = mlp_train(torch, np, fa, fu)
+        torch.cuda.empty_cache()
+        emit({"phase": "mlp_trained",
+              "elapsed_s": time.perf_counter() - t_start})
+        # the image rows in process: no kernel of the port runs there
+        for mod in (fa, fu, da, i8):
+            mod.reset_launches()
+        image_rows(torch, np)
+        image = {**fa.launches, **fu.launches, **da.launches, **i8.launches}
+        if any(image.values()):
+            fail(f"image_rows launched {image}")
+        torch.cuda.empty_cache()
+        emit({"phase": "image_rows_done",
+              "elapsed_s": time.perf_counter() - t_start})
+        return mlp, image
+
+    # config 2's processes run beside this process's 1B MLP steps and
+    # image rows (each side's times taken beside the other's; this
+    # process's launch counts are its own)
+    done = in_parallel({"here": mlp_and_image_rows,
+                        "config2": lambda: config2_wire(np)}, here="here")
+    (mlp_launches, image_launches), config2_launches = (done["here"],
+                                                        done["config2"])
     emit({"phase": "config2_done",
+          "elapsed_s": time.perf_counter() - t_start})
+    config3_launches = config3_wire(np, config1_ckpts)
+    del config1_ckpts
+    emit({"phase": "config3_done",
           "elapsed_s": time.perf_counter() - t_start})
 
     # ---- kernels line: flash_fwd at the largest serving bucket (S=2048,
@@ -5385,7 +5915,8 @@ def main() -> int:
                       "config1_wire": config1_launches.get(name, 0),
                       "mlp_train": mlp_launches.get(name, 0),
                       "image_rows": image_launches.get(name, 0),
-                      "config2_wire": config2_launches.get(name, 0)}
+                      "config2_wire": config2_launches.get(name, 0),
+                      "config3_wire": config3_launches.get(name, 0)}
                for name in sources}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     times = {"flash_fwd": serve_t[2048], **{k: v for k, v in train_t.items()
@@ -5401,7 +5932,7 @@ def main() -> int:
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "launches_by_path": by_path[name]}
-        for key in ("lanes", "verify", "resnet18_store"):
+        for key in ("lanes", "verify", "resnet18_store", "cold_l2"):
             if key in t:
                 entry[key] = t[key]
         kernels.append(entry)
@@ -5419,7 +5950,8 @@ def main() -> int:
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            or (k["name"] == "fused_sgd"
-               and k["launches_by_path"]["config2_wire"] <= 0)
+               and min(k["launches_by_path"][path]
+                       for path in ("config2_wire", "config3_wire")) <= 0)
            for k in kernels):
         fail(f"a kernel of the main paths never launched: {by_path}")
     emit({"phase": "done", "elapsed_s": time.perf_counter() - t_start})

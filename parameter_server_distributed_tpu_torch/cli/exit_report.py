@@ -11,11 +11,13 @@ close's counters: ``ps.apply.device`` (closes that published a device
 store), ``ps.apply.device_fallback`` and ``ps.apply.arena_fallback``.
 The launch counts include ``ops.device_apply``'s four kernels and
 ``ops.int8_serve``'s three; ``peak_rss_bytes`` is the process's peak
-resident host memory.  The PS adds its optimizer's class
+resident host memory, from the source ``peak_rss_source`` names (see
+:func:`peak_rss`).  The PS adds its optimizer's class
 (``optimizer``), the updates its async mode applied
-(``applied_updates``, 0 when synchronous) and its delta chain's state
+(``applied_updates``, 0 when synchronous), its delta chain's state
 (``delta``: armed or not, the (version, crc, wall time) of the last
-versions published), a serving process its stats, streams served and,
+versions published) and the names and shapes of its store at exit
+(``store``: a shard of a sharded store lists its own), a serving process its stats, streams served and,
 following a PS, its follower's state and swaps.
 ``chip_smoke.py`` reads it to check and report the processes' work."""
 
@@ -30,6 +32,25 @@ import torch
 from ..obs import stats as obs_stats
 
 
+def peak_rss() -> tuple[int, str]:
+    """This process's peak resident host memory in bytes and its source:
+    VmHWM of /proc/self/status, the high-water mark of its own address
+    space, where the kernel reports it; else getrusage's ru_maxrss, which
+    keeps across exec the resident size the process had when it was
+    forked, so a child of a large process reports at least its parent's
+    size (a caller that needs a child's own peak samples its VmRSS)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024, "VmHWM"
+    except OSError:
+        pass
+    # Linux reports ru_maxrss in KiB
+    return (resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "ru_maxrss")
+
+
 def write_exit_report(path: str, role: str, **extra) -> None:
     """Write the report of this process, playing ``role``, to ``path``;
     ``extra`` keys join the report as they are."""
@@ -42,15 +63,15 @@ def write_exit_report(path: str, role: str, **extra) -> None:
                  "ps.apply.device_fallback", "ps.apply.arena_fallback"):
         obs_stats.counter(name)
     snap = obs_stats.REGISTRY.snapshot()
+    rss, rss_source = peak_rss()
     report = {
         "role": role, **extra,
         "launches": {**flash_attention.launches, **fused_update.launches,
                      **device_apply.launches, **int8_serve.launches},
         "peak_mem_bytes": (torch.cuda.max_memory_allocated()
                            if torch.cuda.is_initialized() else 0),
-        # Linux reports ru_maxrss in KiB
-        "peak_rss_bytes": resource.getrusage(
-            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "peak_rss_bytes": rss,
+        "peak_rss_source": rss_source,
         "counters": snap["counters"],
         "gauges": snap["gauges"],
         "histograms": {name: obs_stats.REGISTRY.histogram(name).summary()

@@ -45,6 +45,8 @@ import logging
 import signal
 import sys
 
+import numpy as np
+
 from ..config import (DEFAULT_OPTIMIZER, DEFAULT_PS_PORT,
                       ParameterServerConfig, parse_argv, parse_host_port,
                       require_flag_value)
@@ -116,7 +118,10 @@ def main(argv: list[str] | None = None) -> int:
             write_exit_report(report, "ps",
                               optimizer=type(ps.optimizer).__name__,
                               applied_updates=ps.core.applied_updates,
-                              delta=ps.service.delta_report())
+                              delta=ps.service.delta_report(),
+                              store={name: list(np.shape(value)) for
+                                     name, value in
+                                     ps.core.get_parameters().items()})
     return 0
 
 

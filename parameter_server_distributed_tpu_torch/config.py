@@ -40,6 +40,10 @@ class CoordinatorConfig:
     ps_port: int = DEFAULT_PS_PORT
     stale_timeout_s: float = STALE_TIMEOUT_S
     reap_period_s: float = REAP_PERIOD_S
+    # PS shard addresses ("host:port") beyond the primary above: the
+    # store is then partitioned by tensor name over all of them and
+    # workers fan pushes and pulls out per owner; () = one PS
+    ps_shards: tuple[str, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)

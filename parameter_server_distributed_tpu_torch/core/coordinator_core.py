@@ -9,14 +9,20 @@ stale-worker eviction and the PS address workers discover.  Its
 core a provider whose ``generation()`` moves whenever the live set does,
 so the barrier narrows at the next width read.
 
+The PS shard map: one :class:`ShardMapEntry` per PS shard (entry 0
+the PS the reference protocol's discovery names, the rest
+``CoordinatorConfig.ps_shards``) under a map epoch, read by workers
+through ``GetShardMap``.
+
 The decode fleet's registry: a map server id -> :class:`FleetMember`
 under a fleet epoch bumped on every state change (JOINING, ACTIVE,
 DRAINING, GONE: the elastic membership states), the manual scale
 target, and the stale-server reap the coordinator's reaper runs.
 
-Not ported: the shard map, promotions and live resharding (ROADMAP.md
-Queue 1, item 13), the tier topology (item 10) and the workers'
-membership states with their drain (item 11).
+Not ported: backups, their promotion, ``set_shard_backups``,
+``set_shard_map`` and live resharding (ROADMAP.md Queue 1, item 13), the
+tier topology (item 10) and the workers' membership states with their
+drain (item 11).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable
+from typing import Callable, Sequence
 
 from ..elastic import messages as emsg
 from ..obs import stats as obs_stats
@@ -68,14 +74,33 @@ class FleetMember:
     prefix_fp: bytes = b""
 
 
+@dataclasses.dataclass
+class ShardMapEntry:
+    """One PS shard: its serving primary, a backup replica (always
+    empty in the port: backups are item 13's) and the map epoch at which
+    this entry last changed."""
+    primary: str
+    backup: str = ""
+    epoch: int = 1
+
+
 class CoordinatorCore:
     def __init__(self, ps_address: str, ps_port: int,
+                 ps_shards: Sequence[str] = (),
                  time_fn: Callable[[], float] = time.monotonic):
         self._ps_address = ps_address
         self._ps_port = int(ps_port)
         self._workers: dict[int, WorkerRegistryEntry] = {}
-        self._lock = threading.Lock()   # the registry and the PS address
+        # the registry, the PS address and the shard map
+        self._lock = threading.Lock()
         self._time = time_fn
+        # the epoch-numbered shard map: index = shard index, entry 0 the
+        # primary PS that the reference protocol sees, then the shards
+        # beyond it (CoordinatorConfig.ps_shards)
+        self._shard_epoch = 1
+        self._shard_map: list[ShardMapEntry] = [
+            ShardMapEntry(primary=addr, epoch=1)
+            for addr in (f"{ps_address}:{int(ps_port)}", *ps_shards)]
         # bumped whenever the live set changes (a new worker, a leave, an
         # eviction): the PS barrier-width cache invalidates on it
         self._registry_generation = 0
@@ -126,10 +151,46 @@ class CoordinatorCore:
             return self._ps_address, self._ps_port
 
     def set_parameter_server_address(self, address: str, port: int) -> None:
-        """Re-point discovery (ephemeral ports, PS failover)."""
+        """Re-point discovery (ephemeral ports, PS failover); the shard
+        map's entry 0 follows."""
         with self._lock:
             self._ps_address = address
             self._ps_port = int(port)
+            self._shard_map[0].primary = f"{address}:{int(port)}"
+            self._shard_map[0].epoch = self._shard_epoch
+
+    def get_parameter_server_shards(self) -> list[str]:
+        """Every PS shard's address (the map's primaries), shard 0
+        first; one element means the unsharded topology."""
+        with self._lock:
+            return [e.primary for e in self._shard_map]
+
+    def set_parameter_server_shards(self, shards: Sequence[str]) -> None:
+        """Replace the shards beyond the primary; an entry whose address
+        is unchanged keeps its epoch."""
+        with self._lock:
+            old = {e.primary: e for e in self._shard_map[1:]}
+            self._shard_epoch += 1
+            self._shard_map[1:] = [
+                old.get(addr) or ShardMapEntry(primary=addr,
+                                               epoch=self._shard_epoch)
+                for addr in shards]
+
+    def get_shard_map(self) -> tuple[int, list[ShardMapEntry]]:
+        """(map epoch, entry copies).  The epoch only grows, so a worker
+        holding entries at epoch E knows a map of a later epoch replaces
+        them."""
+        with self._lock:
+            return self._shard_epoch, [dataclasses.replace(e)
+                                       for e in self._shard_map]
+
+    def promote_shard(self, shard_index: int, observed_primary: str
+                      ) -> tuple[int, list[ShardMapEntry]]:
+        """A worker reports shard ``shard_index``'s primary failed.  The
+        JAX package swaps in the shard's backup; no entry of the port's
+        map has one (backups and promotion are item 13's), so the map
+        comes back unchanged, and the reporter raises its error."""
+        return self.get_shard_map()
 
     def registry_generation(self) -> int:
         """Monotone count of live-set changes (register, leave, evict)."""

@@ -113,10 +113,14 @@ def bind_service(server: grpc.Server, service_name: str,
 
 # Shared channel/server options.  The default 16KB HTTP/2 frame caps
 # loopback throughput for tensor-sized messages; the larger write buffer
-# keeps the transport fed while the next chunk encodes.
+# keeps the transport fed while the next chunk encodes.  A chunk carries
+# whole tensors, so one message holds at least the largest tensor: gRPC's
+# largest message (2 GiB - 1), where the JAX package's 1 GiB refuses an
+# f32 push of one mlp_1b weight (16384 x 16384, 1 GiB + its header)
+MAX_MESSAGE_BYTES = (1 << 31) - 1
 CHANNEL_OPTIONS = [
-    ("grpc.max_send_message_length", 1 << 30),
-    ("grpc.max_receive_message_length", 1 << 30),
+    ("grpc.max_send_message_length", MAX_MESSAGE_BYTES),
+    ("grpc.max_receive_message_length", MAX_MESSAGE_BYTES),
     ("grpc.http2.max_frame_size", 16 << 20),
     ("grpc.http2.write_buffer_size", 64 << 20),
 ]

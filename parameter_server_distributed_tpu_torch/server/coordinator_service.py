@@ -9,13 +9,20 @@ src/coordinator_service.cpp:102-107).
 
 Beside the reference's four RPCs it serves the decode fleet's
 ``UpdateFleet`` (fleet/messages.py ``FLEET_COORD_METHODS``: register,
-heartbeat, leave, drain, scale target, table query), and its reaper also
-marks decode servers silent for the stale timeout GONE.  The JAX
-package's other extensions (the shard map, membership and the tier
-topology, ROADMAP.md Queue 1, items 13, 11 and 10) answer UNIMPLEMENTED,
-which the JAX package's ``Worker`` latches as "unsupported" and carries
-on without; ``GetClusterMetrics`` and its fleet rollup (item 14,
-observability) answer UNIMPLEMENTED with that item named.
+heartbeat, leave, drain, scale target, table query) and the PS shard
+map: ``GetParameterServerAddress`` lists every shard in its extension
+field 3 when the store is sharded (``--ps-shards``), and
+``GetShardMap`` / ``ReportShardFailure`` (replication/messages.py
+``REPLICATION_COORD_METHODS``) answer the epoch-numbered map, so either
+package's ``Worker`` fans out over the shards as it does on a JAX
+coordinator.  Its reaper also marks decode servers silent for the stale
+timeout GONE.  The JAX package's other extensions (membership and the
+tier topology, ROADMAP.md Queue 1, items 11 and 10) answer
+UNIMPLEMENTED, which the JAX package's ``Worker`` latches as
+"unsupported" and carries on without; ``GetClusterMetrics`` and its
+fleet rollup (item 14, observability) answer UNIMPLEMENTED with that
+item named.  A reported shard failure promotes nothing: backups are
+item 13's.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import grpc
 from ..config import CoordinatorConfig
 from ..core.coordinator_core import CoordinatorCore
 from ..fleet import messages as fmsg
+from ..replication import messages as rmsg
 from ..rpc import messages as m
 from ..rpc.service import bind_service, make_server
 from ..rpc.wire import Message
@@ -80,7 +88,34 @@ class CoordinatorService:
     def GetParameterServerAddress(self, request: m.GetPSAddressRequest,
                                   context) -> m.GetPSAddressResponse:
         addr, port = self.core.get_parameter_server_address()
-        return m.GetPSAddressResponse(address=addr, port=port)
+        shards = self.core.get_parameter_server_shards()
+        # extension field 3 only when sharded: reference peers skip it,
+        # the packages' workers fan out per tensor owner
+        return m.GetPSAddressResponse(address=addr, port=port,
+                                      shards=shards if len(shards) > 1
+                                      else [])
+
+    # the epoch-numbered shard map (framework extension, replication/)
+    @staticmethod
+    def _map_response(epoch, entries) -> rmsg.ShardMapResponse:
+        return rmsg.ShardMapResponse(
+            epoch=epoch,
+            entries=[rmsg.WireShardMapEntry(primary=e.primary,
+                                            backup=e.backup, epoch=e.epoch)
+                     for e in entries])
+
+    def GetShardMap(self, request: rmsg.ShardMapRequest,
+                    context) -> rmsg.ShardMapResponse:
+        return self._map_response(*self.core.get_shard_map())
+
+    def ReportShardFailure(self, request: rmsg.ShardFailureReport,
+                           context) -> rmsg.ShardMapResponse:
+        log.warning("worker %d reports shard %d (%s) dead",
+                    request.worker_id, request.shard_index,
+                    request.observed_primary)
+        epoch, entries = self.core.promote_shard(request.shard_index,
+                                                 request.observed_primary)
+        return self._map_response(epoch, entries)
 
     def GetClusterMetrics(self, request, context):
         context.abort(grpc.StatusCode.UNIMPLEMENTED, ROADMAP_OBS)
@@ -138,7 +173,8 @@ class Coordinator:
 
     def __init__(self, config: CoordinatorConfig):
         self.config = config
-        self.core = CoordinatorCore(config.ps_address, config.ps_port)
+        self.core = CoordinatorCore(config.ps_address, config.ps_port,
+                                    ps_shards=config.ps_shards)
         self.service = CoordinatorService(self.core)
         self._server: grpc.Server | None = None
         self._stop = threading.Event()
@@ -149,6 +185,7 @@ class Coordinator:
         self._server = make_server()
         bind_service(self._server, m.COORDINATOR_SERVICE,
                      {**m.COORDINATOR_METHODS, **fmsg.FLEET_COORD_METHODS,
+                      **rmsg.REPLICATION_COORD_METHODS,
                       **_UNPORTED_METHODS}, self.service)
         addr = f"{self.config.bind_address}:{self.config.port}"
         port = self._server.add_insecure_port(addr)
@@ -158,8 +195,9 @@ class Coordinator:
         self._reaper = threading.Thread(target=self._reap_loop, daemon=True,
                                         name="coordinator-reaper")
         self._reaper.start()
-        log.info("coordinator listening on %s (ps=%s:%d)", addr,
-                 self.config.ps_address, self.config.ps_port)
+        log.info("coordinator listening on %s (ps=%s:%d, %d shard(s))",
+                 addr, self.config.ps_address, self.config.ps_port,
+                 1 + len(self.config.ps_shards))
         return port
 
     def _reap_loop(self) -> None:

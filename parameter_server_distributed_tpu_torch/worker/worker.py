@@ -42,10 +42,22 @@ in the path becomes the worker id): ``step_time_s``, ``pull_s``,
 and for a bucketed step ``dtoh_ms`` (the copies' device time) and
 ``dtoh_wait_s``.
 
+A PS sharded over several processes (the coordinator's ``--ps-shards``)
+is discovered as the JAX worker discovers it: the coordinator's shard map
+(``GetShardMap``) when it lists more than one primary, else field 3 of
+the discovery answer, builds a ``ShardedPSClient`` (worker/ps_shards.py)
+that fans every push and pull out per tensor owner; one address builds
+the single-PS ``PSClient``.  A sharded round drains the trainer's
+bucketed download once, then pushes each shard its partition; deltas are
+the single-PS connection's (the sharded client has none, and the worker
+takes the plain rounds).  A partial pull (a shard restarted empty) asks
+the shard map again first, then reseeds only the missing names, so a
+restarted shard is reseeded alone.
+
 Not ported: the tier client and error feedback of lossy pushes (ROADMAP.md
-Queue 1, item 10), membership and drain (item 11), the shard-map client and sharded PS fan-out (item 13), flight events and
-the heartbeat's metric snapshot (item 14), and the free-running loop
-(item 11).
+Queue 1, item 10), membership and drain (item 11), failover, promotion,
+backups and resharding (item 13), flight events and the heartbeat's
+metric snapshot (item 14), and the free-running loop (item 11).
 """
 
 from __future__ import annotations
@@ -64,14 +76,15 @@ import numpy as np
 from ..config import WorkerConfig
 from ..core.tensor import TensorStore, from_wire, to_wire
 from ..obs import stats as obs_stats
+from ..replication.failover import ShardMapClient
 from ..rpc import messages as m
 from ..rpc.data_plane import PSClient
 from ..rpc.service import RpcClient
+from .ps_shards import ShardedPSClient
 
 log = logging.getLogger("pst.worker")
 
 ROADMAP_TIERS = "ROADMAP.md Queue 1, item 10 (tiers and error feedback)"
-ROADMAP_SHARDS = "ROADMAP.md Queue 1, item 13 (replication and resharding)"
 
 _PHASES = ("step", "data", "pull", "compute", "push", "fused",
            "barrier_wait")
@@ -110,7 +123,7 @@ class Worker:
         self._coordinator = RpcClient(config.coordinator_address,
                                       m.COORDINATOR_SERVICE,
                                       m.COORDINATOR_METHODS)
-        self._ps: PSClient | None = None
+        self._ps: PSClient | ShardedPSClient | None = None
         self._ps_address: str | None = None
         self._total_workers = 0
         self._requested_wire_dtype = m.WIRE_DTYPE_NAMES[config.wire_dtype]
@@ -156,16 +169,31 @@ class Worker:
             lambda: self._coordinator.call("GetParameterServerAddress",
                                            m.GetPSAddressRequest(),
                                            timeout=5.0))
-        if len(resp.shards) > 1:
-            raise NotImplementedError(
-                f"a PS sharded over {len(resp.shards)} addresses: "
-                f"{ROADMAP_SHARDS}")
         self._ps_address = f"{resp.address}:{resp.port}"
         if self._ps is not None:
             self._ps.close()
-        self._ps = PSClient(self._ps_address)
-        log.info("worker %d: PS at %s", self.config.worker_id,
-                 self._ps_address)
+        # the coordinator's epoch-numbered shard map; a reference
+        # coordinator answers UNIMPLEMENTED and the worker keeps the
+        # discovery answer's topology
+        shard_map = ShardMapClient(self.config.coordinator_address,
+                                   worker_id=self.config.worker_id)
+        primaries = shard_map.primaries() if shard_map.refresh() else []
+        if len(primaries) > 1:
+            self._ps = ShardedPSClient(primaries, shard_map=shard_map)
+            log.info("worker %d: %d PS shards at %s (map epoch %d)",
+                     self.config.worker_id, len(primaries), primaries,
+                     shard_map.epoch)
+        elif len(resp.shards) > 1:
+            # the sharded store of field 3 (a coordinator without a map)
+            shard_map.close()
+            self._ps = ShardedPSClient(list(resp.shards))
+            log.info("worker %d: %d PS shards at %s", self.config.worker_id,
+                     len(resp.shards), list(resp.shards))
+        else:
+            shard_map.close()
+            self._ps = PSClient(self._ps_address)
+            log.info("worker %d: PS at %s", self.config.worker_id,
+                     self._ps_address)
         self._reset_wire_negotiation()  # a new PS must re-prove packed support
         self._next_params = None        # cached params were the old PS's
 
@@ -269,12 +297,14 @@ class Worker:
                 local.update(from_wire(tensors))
 
             # the version-aware pull first: the PS answers the changed
-            # bytes; None = the plain protocol must run
-            result = self._ps.delta_pull(
+            # bytes; None = the plain protocol must run (a sharded client
+            # has no delta pull)
+            delta_pull = getattr(self._ps, "delta_pull", None)
+            result = delta_pull(
                 m.PullRequest(worker_id=self.config.worker_id,
                               iteration=iteration,
                               wire_dtype=self._pull_wire_dtype()),
-                timeout=30.0)
+                timeout=30.0) if delta_pull is not None else None
             if result is not None and result.store is not None:
                 return result.update, result.store
             resp = self._ps.pull_parameters(
@@ -364,10 +394,12 @@ class Worker:
             # (deltas off or downgraded, or the rings preferred), and a
             # mid-round downgrade's replay below is exact (the PS's
             # per-(worker, tensor) dedup)
-            result = self._ps.delta_push_pull(
+            delta_push_pull = getattr(self._ps, "delta_push_pull", None)
+            result = delta_push_pull(
                 self.config.worker_id, iteration, tensors_fn,
                 pull_wire_dtype=self._pull_wire_dtype(),
-                timeout=self.config.fused_timeout_s)
+                timeout=self.config.fused_timeout_s
+            ) if delta_push_pull is not None else None
             if result is not None:
                 push = (result.push if result.push is not None
                         else m.PushResponse(success=False,
@@ -423,6 +455,23 @@ class Worker:
                                   m.SyncStatusRequest(iteration=iteration),
                                   timeout=5.0))
 
+    def _refresh_topology_on_partial(self) -> bool:
+        """A partial pull may mean the shard map moved tensors to shards
+        this client does not know yet, rather than a shard restarted
+        empty: ask the map again if the client has one.  True when a
+        re-pull is worth trying; False = no map, go reseed."""
+        refresh = getattr(self._ps, "refresh_topology", None)
+        if refresh is None:
+            return False
+        try:
+            refresh()
+        except Exception:  # noqa: BLE001 — fall through to the reseed
+            log.warning("worker %d: topology refresh failed",
+                        self.config.worker_id, exc_info=True)
+            return False
+        shard_map = getattr(self._ps, "_shard_map", None)
+        return shard_map is not None and shard_map.supported
+
     def _expected_param_names(self) -> frozenset[str]:
         """The model's full parameter-name set, from its shapes."""
         if self._expected_names is None:
@@ -472,6 +521,18 @@ class Worker:
                 _, params = self.pull_parameters(iteration)
             missing = (self._expected_param_names() - set(params)
                        if params else set())
+            for _ in range(3 if missing else 0):
+                # the missing tensors may have moved with the shard map
+                # rather than been lost: ask the map and pull again (a
+                # few times) before concluding a shard restarted empty
+                if not self._refresh_topology_on_partial():
+                    break
+                _, params = self.pull_parameters(iteration)
+                missing = (self._expected_param_names() - set(params)
+                           if params else set())
+                if not missing:
+                    break
+                time.sleep(0.3)
             if not params or missing:
                 return self._seed_bootstrap(iteration, missing)
 

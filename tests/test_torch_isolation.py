@@ -26,6 +26,7 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "k5_compare.py")
     yield os.path.join(REPO, "resnet_grad_conditioning.py")
+    yield os.path.join(REPO, "config3_probe.py")
 
 
 def _blocked(module: str) -> bool:
@@ -66,6 +67,14 @@ def test_delta_modules_are_scanned():
     assert {os.path.join("delta", name) for name in (
         "__init__.py", "messages.py", "chain.py", "client.py",
         "subscriber.py")} <= scanned
+
+
+def test_sharding_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("replication", "__init__.py"),
+            os.path.join("replication", "messages.py"),
+            os.path.join("replication", "failover.py"),
+            os.path.join("worker", "ps_shards.py")} <= scanned
 
 
 def test_image_and_data_modules_are_scanned():
@@ -252,6 +261,29 @@ def test_port_imports_and_serves_with_jax_blocked():
             client.close()
             router.stop()
             fleet.stop()
+            coordinator.stop()
+        # a sharded store's discovery: the shard map of a coordinator
+        # started with two more shards, and the client over its primaries
+        from parameter_server_distributed_tpu_torch.replication.failover \
+            import ShardMapClient
+        from parameter_server_distributed_tpu_torch.worker.ps_shards \
+            import ShardedPSClient, shard_owner
+        coordinator = Coordinator(config.CoordinatorConfig(
+            bind_address="127.0.0.1", port=0,
+            ps_shards=("127.0.0.1:2", "127.0.0.1:3")))
+        shard_map = ShardMapClient(f"127.0.0.1:{{coordinator.start()}}")
+        try:
+            assert shard_map.refresh() and len(shard_map.primaries()) == 3
+            sharded = ShardedPSClient(shard_map.primaries(),
+                                      shard_map=shard_map)
+            assert sharded.num_shards == 3
+            assert [len(p) for p in sharded._partition(
+                [msgs.Tensor.from_array(f"layer{{i}}/w", store["layer0/b"])
+                 for i in range(4)])] == [
+                sum(shard_owner(f"layer{{i}}/w", 3) == k for i in range(4))
+                for k in range(3)]
+            sharded.close()
+        finally:
             coordinator.stop()
         assert not any(m.split(".")[0] in ("jax", "jaxlib")
                        or m == "parameter_server_distributed_tpu"

@@ -58,7 +58,8 @@ from parameter_server_distributed_tpu_torch.checkpoint import \
     codec as ckpt_codec
 from parameter_server_distributed_tpu_torch.checkpoint.manager import \
     CheckpointManager
-from parameter_server_distributed_tpu_torch.cli import ps_main, worker_main
+from parameter_server_distributed_tpu_torch.cli import (coordinator_main,
+                                                       ps_main, worker_main)
 from parameter_server_distributed_tpu_torch.core.optimizer import \
     make_optimizer
 from parameter_server_distributed_tpu_torch.core.ps_core import \
@@ -300,7 +301,9 @@ def test_unported_options_name_their_items(monkeypatch):
     for flag, item in (("--elastic", "item 11"), ("--coordinator=a:1",
                                                   "item 10"),
                        ("--quorum=0.5", "item 11"), ("--backup=a:1",
-                                                     "item 13")):
+                                                     "item 13"),
+                       ("--replication=1", "item 13"),
+                       ("--standby", "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             ps_main.build_config(["127.0.0.1:0", flag])
     for flag, item in (("--mesh=data:2", "item 8"), ("--freerun", "item 11"),
@@ -316,6 +319,17 @@ def test_unported_options_name_their_items(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 10"):
         Worker(port_config.WorkerConfig(wire_dtype="int8", device="cpu"),
                None, iter(()), start_heartbeat=False)
+    # a static sharded store is ported; backups stay item 13's
+    with pytest.raises(NotImplementedError, match="item 13"):
+        coordinator_main.build_config(["127.0.0.1:0", "127.0.0.1:1",
+                                       "--ps-backups=127.0.0.1:2"])
+    config = coordinator_main.build_config(
+        ["127.0.0.1:0", "127.0.0.1:1", "--ps-shards=h:2,h:3"])
+    assert (config.ps_address, config.ps_port, config.ps_shards) == (
+        "127.0.0.1", 1, ("h:2", "h:3"))
+    assert coordinator_main.build_config(["127.0.0.1:0"]).ps_shards == ()
+    with pytest.raises(SystemExit, match="--ps-shards"):
+        coordinator_main.build_config(["127.0.0.1:0", "--ps-shards"])
 
 
 def test_entry_points_refuse_without_card(monkeypatch):
