@@ -71,6 +71,22 @@ two paths of the port:
   PSDT_ARENA=1, whose stores must be byte-identical after every round,
   with the device close's launches as its design gives them and no
   fallback;
+- mixture-of-experts and the Hugging Face conversion, each phase alone
+  on an emptied card: moe_serve (moe_350m, 1,072,317,440 parameters,
+  bf16, serve's 8 prompts on a DecodeServer, flash launches 24 a
+  prefill, its burst in turns with a llama_350m server's and each
+  model's profiled request, a decode round's host syncs equal to
+  llama_350m's, float32 streams at bucket-sized prompts token-exact
+  against generate, prefill logits with flash against dense attention
+  given the same routes), moe_train (moe_350m through the PS round in
+  process, one worker, 2 rounds of pallas_adam, launches as designed,
+  the first loss within 1e-3 of dense attention's and the first
+  gradients within 2^-5 in L2 of float32 dense attention's on the same
+  routes, each round's NLL and aux, each MoE layer's dropped share) and
+  hf_serve (a GPT-2 small-shaped store under the Hugging Face
+  names converted by from_hf_gpt2 and served in float32, 12 flash
+  launches a prefill, the first stream equal to generate's; the
+  llama_350m store round to_hf_llama -> from_hf_llama byte for byte);
 - the same round over the wire: cli.ps_main, cli.coordinator_main and
   two cli.worker_main processes (llama_350m) on localhost, a bootstrap
   iteration and gradient rounds over the fused PushPullStream data
@@ -128,6 +144,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -319,14 +336,21 @@ def check_flash_fwd(torch, fa, gen) -> float:
     """flash_fwd against its plain version at every shape the main paths
     give it (each serving prefill bucket at B=1, the llama_350m training
     batch, the f32 models of the serve_vs_generate and
-    train_flash_vs_dense phases), MHA, D=128 and ragged segments (S=200,
-    whose last q tile runs into the next segment's rows); returns the
-    largest |o| error."""
+    train_flash_vs_dense phases; moe_350m's MHA at its serving buckets,
+    its training batch and its f32 bucket-sized prompts, GPT-2's f32
+    buckets), D=128 and ragged segments (S=200, whose last q tile runs
+    into the next segment's rows); returns the largest |o| error."""
     heads, kv, d = LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
     cases = [(1, s, heads, kv, d, torch.bfloat16)
              for s in (128, 256, 512, 1024, 2048)]
+    # moe_350m (MHA, 16 heads): serving buckets, training batch, f32
+    cases += [(1, s, 16, 16, 64, torch.bfloat16)
+              for s in (256, 512, 1024, 2048)]
+    cases += [(TRAIN["batch"], TRAIN["seq"], 16, 16, 64, torch.bfloat16)]
+    cases += [(1, s, 16, 16, 64, torch.float32) for s in (256, 512)]
+    # GPT-2 small's shape (12 heads, f32): hf_serve's buckets
+    cases += [(1, s, 12, 12, 64, torch.float32) for s in (256, 512, 1024)]
     cases += [(TRAIN["batch"], TRAIN["seq"], heads, kv, d, torch.bfloat16),
-              (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
               (1, 512, 8, 8, 128, torch.bfloat16),      # lm_350m_hd128
               (2, 512, 16, 4, 128, torch.bfloat16),     # D=128, G=4
               (2, 200, 6, 2, 64, torch.bfloat16),       # S % 64 != 0, G=3
@@ -379,13 +403,15 @@ def bwd_inputs(torch, fa, gen, b, s, heads, kv, d, dtype):
 
 def check_flash_bwd(torch, fa, gen) -> dict[str, float]:
     """dQ and dK/dV against flash_bwd_reference on the same inputs: the
-    llama_350m training shape, MHA, D=128, f32, and segments that are not
-    a multiple of the 64-row tile.  f32 within rtol 5e-4, atol 1e-5 (the
-    reference's gradient tolerance); bf16 within rtol 1e-2, atol 1e-3 of
-    the f32 plain result on the same bf16 inputs (each output is rounded
-    once to bf16).  Returns each kernel's largest absolute error."""
+    llama_350m and moe_350m (MHA) training shapes, MHA, D=128, f32, and
+    segments that are not a multiple of the 64-row tile.  f32 within
+    rtol 5e-4, atol 1e-5 (the reference's gradient tolerance); bf16
+    within rtol 1e-2, atol 1e-3 of the f32 plain result on the same bf16
+    inputs (each output is rounded once to bf16).  Returns each kernel's
+    largest absolute error."""
     b, heads, kv, d = TRAIN["batch"], LLAMA["heads"], LLAMA["kv"], LLAMA["d"]
     cases = [(b, TRAIN["seq"], heads, kv, d, torch.bfloat16),
+             (b, TRAIN["seq"], 16, 16, 64, torch.bfloat16),   # moe_350m
              (1, 512, 16, 16, 64, torch.bfloat16),     # MHA
              (2, 512, 8, 2, 128, torch.bfloat16),      # D=128, G=4
              (2, 200, 6, 2, 64, torch.bfloat16),       # S % 64 != 0, G=3
@@ -831,6 +857,64 @@ def _profile_once(torch, fn, names: dict[str, str]) -> dict:
             "top": [[name[:80], ms, n] for name, (ms, n) in top[:12]]}
 
 
+def warm_buckets(serving, srv, prompt, lens=PROMPT_LENS,
+                 max_len: int = 2048) -> None:
+    """One request per prefill bucket of ``lens``, outside any count, so
+    a measured burst sees steady-state library and allocator state."""
+    for n in sorted({min(serving._bucket(n), max_len) for n in lens}):
+        srv.submit((prompt * (n // len(prompt) + 1))[:n - 2],
+                   max_new_tokens=2)
+        srv.run_to_completion()
+
+
+def burst(torch, srv, prompts) -> dict:
+    """All ``prompts`` arrive at t0 and are admitted back to back, then
+    decode rounds run until the server is idle.  A request's TTFT is from
+    t0 to its first token on the host (its prefill plus the prefills
+    queued ahead of it); a gap is one decode round (``step`` returns with
+    the tokens on the host); the card is synchronized before t0 and before
+    the wall time.  Returns the request ids, their streams, each round's
+    emitting requests and the times."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ttft, prefill_s, gaps, rids, emitted = [], [], [], [], []
+    for p in prompts:
+        t1 = time.perf_counter()
+        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
+        prefill_s.append(time.perf_counter() - t1)
+        ttft.append(time.perf_counter() - t0)
+    while not srv.idle:
+        t1 = time.perf_counter()
+        emitted.append({rid for rid, _ in srv.step()})
+        gaps.append(time.perf_counter() - t1)
+    results = srv.run_to_completion()
+    torch.cuda.synchronize()
+    return {"rids": rids, "results": results, "ttft": ttft,
+            "prefill_s": prefill_s, "gaps": gaps, "emitted": emitted,
+            "wall": time.perf_counter() - t0}
+
+
+def burst_report(np, b: dict) -> dict:
+    """The fields every serving phase reports of its burst."""
+    tokens = sum(len(b["results"][r]) for r in b["rids"])
+    return {"requests_answered": len(b["rids"]), "tokens_generated": tokens,
+            "wall_s": b["wall"], "tokens_per_s": tokens / b["wall"],
+            "ttft_p50_s": float(np.median(b["ttft"])), "ttft_s": b["ttft"],
+            "prefill_s": b["prefill_s"], "decode_rounds": len(b["gaps"]),
+            "gap_p50_s": float(np.median(b["gaps"])),
+            "gap_max_s": max(b["gaps"])}
+
+
+def check_streams(b: dict, vocab: int, what: str) -> None:
+    """Every request of the burst answered with NEW_TOKENS in-vocab
+    tokens."""
+    if any(len(b["results"].get(r, ())) != NEW_TOKENS
+           or not all(0 <= t < vocab for t in b["results"][r])
+           for r in b["rids"]):
+        fail(f"{what} did not answer every request with {NEW_TOKENS} "
+             f"in-vocab tokens")
+
+
 def serve(torch, np, fa, rng) -> dict:
     """The serving path: llama_350m through DecodeServer, its profiled
     window, flash-vs-dense logits, f32 server-vs-generate and the CLI.
@@ -852,53 +936,23 @@ def serve(torch, np, fa, rng) -> dict:
                for n in PROMPT_LENS]
     srv = serving.DecodeServer(model, params, slots=8, max_len=2048,
                                device="cuda")
-    # warm-up, outside the count: one request per prefill bucket, so the
-    # measured burst sees steady-state library and allocator state
-    for n in sorted({min(serving._bucket(n), 2048) for n in PROMPT_LENS}):
-        srv.submit((prompts[0] * (n // len(prompts[0]) + 1))[:n - 2],
-                   max_new_tokens=2)
-        srv.run_to_completion()
+    warm_buckets(serving, srv, prompts[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    # all 8 requests arrive at t0 and are admitted back to back: TTFT is
-    # from t0 to the request's first token on the host (its prefill plus
-    # the prefills queued ahead of it); a gap is one decode round
-    t0 = time.perf_counter()
-    ttft, prefill_s, gaps, rids = [], [], [], []
-    for p in prompts:
-        t1 = time.perf_counter()
-        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
-        prefill_s.append(time.perf_counter() - t1)
-        ttft.append(time.perf_counter() - t0)
-    while not srv.idle:
-        t1 = time.perf_counter()
-        srv.step()                      # returns with the tokens on host
-        gaps.append(time.perf_counter() - t1)
-    results = srv.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    b = burst(torch, srv, prompts)
     launches = dict(fa.launches)
     prefills = len(prompts)
-    tokens = sum(len(results[r]) for r in rids)
-    vocab = model.config.vocab
     emit({"phase": "serve", "model": "llama_350m", "dtype": "bfloat16",
           "params": model.num_params(), "slots": 8, "max_len": 2048,
           "prompt_lens": list(PROMPT_LENS),
           "buckets": [min(serving._bucket(n), 2048) for n in PROMPT_LENS],
-          "requests_answered": len(results), "tokens_generated": tokens,
-          "wall_s": wall, "tokens_per_s": tokens / wall,
-          "ttft_p50_s": float(np.median(ttft)), "ttft_s": ttft,
-          "prefill_s": prefill_s, "decode_rounds": len(gaps),
-          "gap_p50_s": float(np.median(gaps)), "gap_max_s": max(gaps),
+          **burst_report(np, b),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "flash_launches": launches,
           "expected_launches": {"flash_fwd": LLAMA["layers"] * prefills},
           "stats": srv.stats})
-    if len(results) != prefills or any(
-            len(results[r]) != NEW_TOKENS
-            or not all(0 <= t < vocab for t in results[r]) for r in rids):
-        fail("serving did not answer every request with in-vocab tokens")
+    check_streams(b, model.config.vocab, "serving")
     if launches != {"flash_fwd": LLAMA["layers"] * prefills,
                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
         fail(f"serving flash launches {launches} != 24 x {prefills} "
@@ -1432,52 +1486,29 @@ def serve_int8(torch, np, fa, rng) -> dict:
                    "scales": 4 * (cache.k_scale.numel()
                                   + cache.v_scale.numel()),
                    "bf16_equivalent": 2 * (cache.k.numel() + cache.v.numel())}
-    for n in sorted({min(serving._bucket(n), 2048) for n in PROMPT_LENS}):
-        srv.submit((prompts[0] * (n // len(prompts[0]) + 1))[:n - 2],
-                   max_new_tokens=2)
-        srv.run_to_completion()
+    warm_buckets(serving, srv, prompts[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     i8.reset_launches()
-    t0 = time.perf_counter()
-    ttft, gaps, rids = [], [], []
-    for p in prompts:
-        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
-        ttft.append(time.perf_counter() - t0)
-    while not srv.idle:
-        t1 = time.perf_counter()
-        srv.step()
-        gaps.append(time.perf_counter() - t1)
-    results = srv.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    b = burst(torch, srv, prompts)
     launches = {**fa.launches, **i8.launches}
-    layers, prefills, rounds = LLAMA["layers"], len(prompts), len(gaps)
+    layers, prefills, rounds = LLAMA["layers"], len(prompts), len(b["gaps"])
     per_forward = 7 * layers + 1
     expected = {"flash_fwd": layers * prefills, "flash_bwd_dq": 0,
                 "flash_bwd_dkv": 0,
                 "int8_wdot": per_forward * (prefills + rounds),
                 "decode_attention_int8": layers * rounds,
                 "kv_quantize": prefills + layers * rounds}
-    tokens = sum(len(results[r]) for r in rids)
     emit({"phase": "serve_int8", "model": "llama_350m",
           "dtype": "bfloat16, int8 weights, int8 KV cache", "slots": 8,
           "max_len": 2048, "prompt_lens": list(PROMPT_LENS),
-          "requests_answered": len(results), "tokens_generated": tokens,
-          "wall_s": wall, "tokens_per_s": tokens / wall,
-          "ttft_p50_s": float(np.median(ttft)), "ttft_s": ttft,
-          "decode_rounds": rounds, "gap_p50_s": float(np.median(gaps)),
-          "gap_max_s": max(gaps),
+          **burst_report(np, b),
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "store_bytes": as_is, "store_bytes_unquantized": dense_bytes,
           "cache_bytes": cache_bytes, "launches": launches,
           "expected_launches": expected})
-    if len(results) != prefills or any(
-            len(results[r]) != NEW_TOKENS
-            or not all(0 <= t < vocab for t in results[r]) for r in rids):
-        fail("int8 serving did not answer every request with in-vocab "
-             "tokens")
+    check_streams(b, vocab, "int8 serving")
     if launches != expected:
         fail(f"int8 serving launches {launches} != {expected}")
 
@@ -1500,7 +1531,7 @@ def serve_int8(torch, np, fa, rng) -> dict:
     exts = [prefix + rng.integers(0, vocab, n).tolist()
             for n in PREFIX_SUFFIXES]
 
-    def burst(server):
+    def prefix_ttft(server):
         t0 = time.perf_counter()
         times = []
         for p in exts:
@@ -1516,7 +1547,7 @@ def serve_int8(torch, np, fa, rng) -> dict:
     psrv.run_to_completion()
     fa.reset_launches()
     i8.reset_launches()
-    cached = burst(psrv)
+    cached = prefix_ttft(psrv)
     leg_launches = {**fa.launches, **i8.launches}
     t1 = time.perf_counter()
     psrv.submit(exts[3], max_new_tokens=8)
@@ -1527,7 +1558,7 @@ def serve_int8(torch, np, fa, rng) -> dict:
     torch.cuda.empty_cache()
     nsrv = serving.DecodeServer(model, params, slots=8, max_len=2048,
                                 cache_dtype="int8", device="cuda")
-    plain = burst(nsrv)
+    plain = prefix_ttft(nsrv)
     del nsrv
     emit({"phase": "serve_int8_prefix", "prefix_len": PREFIX_LEN,
           "suffix_lens": list(PREFIX_SUFFIXES),
@@ -1741,33 +1772,21 @@ def check_spec_kernels(torch, np, gen) -> tuple[dict, dict]:
 
 
 def _spec_burst(torch, np, srv, prompts, launches_of) -> dict:
-    """One 8-request burst on ``srv`` (every request admitted at t0, then
-    rounds until idle), as ``serve`` times it: TTFT, gaps, tokens/s, the
+    """One 8-request ``burst`` on ``srv``: TTFT, gaps, tokens/s, the
     launches (from 0), and tokens per target forward (a request's tokens
     over its prefill and the rounds it took part in)."""
     torch.cuda.synchronize()
     launches_of(reset=True)
-    t0 = time.perf_counter()
-    ttft, gaps, rids = [], [], []
-    for p in prompts:
-        rids.append(srv.submit(p, max_new_tokens=NEW_TOKENS))
-        ttft.append(time.perf_counter() - t0)
-    forwards = dict.fromkeys(rids, 1)
-    while not srv.idle:
-        t1 = time.perf_counter()
-        emitted = srv.step()
-        gaps.append(time.perf_counter() - t1)
-        for rid in {rid for rid, _ in emitted}:
-            forwards[rid] += 1
-    results = srv.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tokens = sum(len(results[r]) for r in rids)
-    return {"results": [results[r] for r in rids], "tokens": tokens,
-            "wall_s": wall, "tokens_per_s": tokens / wall,
-            "ttft_p50_s": float(np.median(ttft)),
-            "gap_p50_s": float(np.median(gaps)), "rounds": len(gaps),
-            "tokens_per_target_forward": tokens / sum(forwards.values()),
+    b = burst(torch, srv, prompts)
+    forwards = len(b["rids"]) + sum(len(e) for e in b["emitted"])
+    tokens = sum(len(b["results"][r]) for r in b["rids"])
+    return {"results": [b["results"][r] for r in b["rids"]],
+            "tokens": tokens, "wall_s": b["wall"],
+            "tokens_per_s": tokens / b["wall"],
+            "ttft_p50_s": float(np.median(b["ttft"])),
+            "gap_p50_s": float(np.median(b["gaps"])),
+            "rounds": len(b["gaps"]),
+            "tokens_per_target_forward": tokens / forwards,
             "launches": launches_of(), "stats": srv.stats}
 
 
@@ -5704,6 +5723,560 @@ def mlp_train(torch, np, fa, fu) -> dict:
     return launches
 
 
+# ---- slice 19: the MoE transformer and the HF conversion on the card
+
+# moe_350m (parameter_server_distributed_tpu/models/transformer.py:974):
+# lm_350m's trunk (24 layers, d_model 1024, 16 heads, d_ff 4096, vocab
+# 32000, bf16) with every 2nd FFN routed over 8 experts, top-1
+MOE = dict(params=1_072_317_440, tensors=207, moe_layers=12, rounds=2,
+           capacity=1280)
+# GPT-2 small's shape: the public "gpt2" configuration of the Hugging
+# Face hub (its config.json)
+GPT2 = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+            n_head=12, activation_function="gelu_new",
+            layer_norm_epsilon=1e-5, n_inner=None)
+# every padded bucket (256, 512, 1024) divides by 128 and stays within
+# the 1024 positions with NEW_TOKENS more
+HF_PROMPT_LENS = (129, 300, 700, 992)
+# llama_350m's transformers configuration (the shape from_hf_llama maps
+# onto llama_350m's architecture)
+LLAMA_HF = dict(vocab_size=32000, hidden_size=1024, num_attention_heads=16,
+                num_key_value_heads=4, num_hidden_layers=24,
+                intermediate_size=2816, max_position_embeddings=1024,
+                rope_theta=10000.0, rms_norm_eps=1e-6, hidden_act="silu",
+                rope_scaling=None, attention_bias=False)
+
+
+class RouteTap:
+    """Wraps a model's MoE router: records every routing it makes (card
+    tensors, no sync).  With ``replay`` set to another forward's records
+    it hands back their experts, queue places and keeps in order, the
+    gates taken from this forward's own probabilities, so two forwards
+    that differ in their attention alone route alike; ``changed`` counts
+    the assignments each replayed route overrode."""
+
+    def __init__(self, model, replay=None):
+        self.layer = model._moe
+        self.route = model._moe.route
+        self.replay = replay
+        self.seen, self.changed = [], []
+        model._moe.route = self
+
+    def __call__(self, router_w, tokens, cap):
+        r = self.route(router_w, tokens, cap)
+        if self.replay is not None:
+            want = self.replay[len(self.seen)]
+            self.changed.append(r.top_idx.ne(want.top_idx).sum())
+            gates = r.probs.gather(1, want.top_idx)
+            if gates.shape[1] > 1:
+                gates = gates / gates.sum(dim=-1, keepdim=True)
+            r = dataclasses.replace(r, top_idx=want.top_idx, gates=gates,
+                                    position=want.position, keep=want.keep)
+        self.seen.append(r)
+        return r
+
+    def close(self) -> None:
+        del self.layer.route       # the class's method again
+
+    def dropped(self) -> list:
+        """Each recorded route's dropped assignments and their count."""
+        return [[int((~r.keep).sum()), r.keep.numel()] for r in self.seen]
+
+
+class StandIn:
+    """What models/hf.py reads of a transformers model: ``.config`` and
+    ``.state_dict()`` (the card has no transformers)."""
+
+    def __init__(self, config: dict, state: dict):
+        import types
+        self.config = types.SimpleNamespace(**config)
+        self._state = state
+
+    def state_dict(self) -> dict:
+        return self._state
+
+
+def gpt2_state(np, seed: int = 0) -> dict:
+    """A GPT-2 small state dict under the Hugging Face names, float32
+    numpy from ``seed``: N(0, 0.02) weights (the residual projections
+    over sqrt(2 L), as GPT-2 initialises them), norm scales 1 + N(0,
+    0.02), N(0, 0.02) biases (zero in GPT-2's init: nonzero here so the
+    bias path carries values)."""
+    rng = np.random.default_rng(seed)
+    d, layers = GPT2["n_embd"], GPT2["n_layer"]
+    out_scale = 1.0 / math.sqrt(2 * layers)
+
+    def w(*shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            0.02 * scale)
+
+    sd = {"transformer.wte.weight": w(GPT2["vocab_size"], d),
+          "transformer.wpe.weight": w(GPT2["n_positions"], d),
+          "transformer.ln_f.weight": 1 + w(d), "transformer.ln_f.bias": w(d)}
+    for i in range(layers):
+        p = f"transformer.h.{i}."
+        sd.update({p + "ln_1.weight": 1 + w(d), p + "ln_1.bias": w(d),
+                   p + "attn.c_attn.weight": w(d, 3 * d),
+                   p + "attn.c_attn.bias": w(3 * d),
+                   p + "attn.c_proj.weight": w(d, d, scale=out_scale),
+                   p + "attn.c_proj.bias": w(d),
+                   p + "ln_2.weight": 1 + w(d), p + "ln_2.bias": w(d),
+                   p + "mlp.c_fc.weight": w(d, 4 * d),
+                   p + "mlp.c_fc.bias": w(4 * d),
+                   p + "mlp.c_proj.weight": w(4 * d, d, scale=out_scale),
+                   p + "mlp.c_proj.bias": w(d)})
+    return sd
+
+
+def round_syncs(torch, srv, prompts) -> dict:
+    """Host syncs of one decode round (the second after two admissions),
+    counted at the dispatcher."""
+    for p in prompts[:2]:
+        srv.submit(p, max_new_tokens=NEW_TOKENS)
+    srv.step()
+    syncs = host_syncs(torch, srv.step)
+    srv.run_to_completion()
+    return syncs
+
+
+def moe_serve(torch, np, fa, rng) -> dict:
+    """moe_350m served: a DecodeServer (bf16, 8 slots x 2048, flash
+    prefill, random weights from seed 0) answers serve's 8 prompts with
+    32 greedy tokens each; flash launches 24 a prefill exactly; a
+    llama_350m server beside it: the burst in turns, each model's
+    profiled request, and the host syncs of a decode round, moe_350m's
+    equal to llama_350m's (its routing makes no host sync); the first
+    stream beside the port's
+    generate (reported: the server's prefill is capacity-routed over the
+    padded bucket, generate's over the prompt, as in the reference, and
+    bf16 flash and dense attention round apart), and in float32 at
+    bucket-sized prompts, where the two compute the same function, each
+    stream token-exact against generate; a 512-token prefill's logits
+    with the flash kernel against dense attention given the same routes.
+    Returns the burst's launch counts."""
+    from parameter_server_distributed_tpu_torch.models import serving
+    from parameter_server_distributed_tpu_torch.models.generation import \
+        generate
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, causal_attention, flash_attention_auto)
+
+    model = get_model("moe_350m", dtype="bf16")
+    c = model.config
+    if model.attention_fn is not flash_attention_auto:
+        fail("PSDT_FLASH_ATTENTION=1 did not select the flash kernel")
+    params = model.init_params(0, device="cuda")
+    n_params = sum(v.numel() for v in params.values())
+    if len(params) != MOE["tensors"] or n_params != MOE["params"]:
+        fail(f"moe_350m has {n_params} parameters in {len(params)} tensors")
+    prompts = [rng.integers(0, c.vocab, n).tolist() for n in PROMPT_LENS]
+    srv = serving.DecodeServer(model, params, slots=8, max_len=2048,
+                               device="cuda")
+    warm_buckets(serving, srv, prompts[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    b = burst(torch, srv, prompts)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"flash_fwd": c.n_layers * len(prompts), "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+    check_streams(b, c.vocab, "moe_350m serving")
+    syncs = round_syncs(torch, srv, prompts)
+
+    # a llama_350m server beside it on the same card and prompts: the
+    # burst in turns (moe_350m's above, then llama_350m, llama_350m,
+    # moe_350m), one decode round's host syncs, and each model's
+    # profiled request at the largest bucket (its prefill and 7 rounds)
+    llama = get_model("llama_350m", dtype="bf16")
+    lsrv = serving.DecodeServer(llama, llama.init_params(0, device="cuda"),
+                                slots=8, max_len=2048, device="cuda")
+    warm_buckets(serving, lsrv, prompts[0])
+    turns = [b]
+    for server in (lsrv, lsrv, srv):
+        turns.append(burst(torch, server, prompts))
+        check_streams(turns[-1], c.vocab, "a serving turn")
+    llama_syncs = round_syncs(torch, lsrv, prompts)
+    profiles = {}
+    for name, server in (("moe_350m", srv), ("llama_350m", lsrv)):
+        def one_request(server=server):
+            server.submit(prompts[-1], max_new_tokens=8)
+            server.run_to_completion()
+        prof = profile_window(torch, one_request, {"flash_ms": "flash_fwd"})
+        profiles[name] = {k: prof[k] for k in (
+            "window_s", "kernel_ms", "device_busy_share", "trace", "top")}
+    del lsrv, llama
+    torch.cuda.empty_cache()
+    # the first stream beside generate: each prefill's dropped
+    # assignments a MoE layer (the server's over the padded bucket)
+    first = b["results"][b["rids"][0]]
+    tap = RouteTap(model)
+    with torch.inference_mode():
+        srv._prefill(np.asarray(prompts[0]),
+                     serving._bucket(len(prompts[0])))
+    server_drops = tap.dropped()
+    tap.seen.clear()
+    gen = generate(model, params, [prompts[0]], NEW_TOKENS)[0].tolist()
+    gen_drops = tap.dropped()[:MOE["moe_layers"]]
+    tap.close()
+    agree = next((i for i, (x, y) in enumerate(zip(first, gen)) if x != y),
+                 len(gen))
+    stats = srv.stats
+    del srv
+    torch.cuda.empty_cache()
+
+    # float32 at bucket-sized prompts: the server and generate compute the
+    # same function (the same capacity, flash on both), token for token
+    model32 = Transformer(dataclasses.replace(c, dtype=torch.float32))
+    params32 = {n: v.float() for n, v in params.items()}
+    sprompts = [rng.integers(0, c.vocab, n).tolist() for n in (256, 512)]
+    ssrv = serving.DecodeServer(model32, params32, slots=2, max_len=1024,
+                                device="cuda")
+    srids = [ssrv.submit(p, max_new_tokens=8) for p in sprompts]
+    sres = ssrv.run_to_completion()
+    exact32 = [sres[r] == generate(model32, params32, [p], 8)[0].tolist()
+               for r, p in zip(srids, sprompts)]
+    del ssrv, model32, params32
+    torch.cuda.empty_cache()
+
+    # a 512-token prefill's logits: flash against dense attention, the
+    # dense forward given the flash forward's routes (and without them,
+    # reported)
+    dense = Transformer(c, attention_fn=causal_attention)
+    tok = torch.tensor([prompts[3] + [0]], device="cuda")    # S = 512
+    with torch.inference_mode():
+        tap = RouteTap(model)
+        lf = model.apply(params, tok)[0, -2]
+        tap.close()
+        free = dense.apply(params, tok)[0, -2]
+        dtap = RouteTap(dense, replay=tap.seen)
+        ld = dense.apply(params, tok)[0, -2]
+        dtap.close()
+    rel = float((lf - ld).abs().max() / ld.abs().max())
+    rel_free = float((lf - free).abs().max() / free.abs().max())
+    rerouted = [int(x) for x in dtap.changed]
+    del dense, params, model
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_serve", "model": "moe_350m", "dtype": "bfloat16",
+          "params": n_params, "tensors": MOE["tensors"], "slots": 8,
+          "max_len": 2048, "prompt_lens": list(PROMPT_LENS),
+          "buckets": [min(serving._bucket(n), 2048) for n in PROMPT_LENS],
+          **burst_report(np, b), "peak_mem_gb": peak,
+          "flash_launches": launches, "expected_launches": expected,
+          "in_turns": [{"model": m, "ttft_p50_s": float(np.median(
+              t["ttft"])), "gap_p50_s": float(np.median(t["gaps"]))}
+              for m, t in zip(("moe_350m", "llama_350m", "llama_350m",
+                               "moe_350m"), turns)],
+          "profiled_request": profiles,
+          "round_host_syncs": syncs, "llama_350m_round_host_syncs":
+          llama_syncs, "first_stream_vs_generate": {
+              "equal": first == gen, "tokens_agreeing": agree,
+              "server_prefill_dropped": server_drops,
+              "generate_prefill_dropped": gen_drops},
+          "f32_bucket_prompts_token_exact": exact32,
+          "logits_flash_vs_dense": {"seq": 512, "max_rel_diff": rel,
+                                    "tol": 5e-2,
+                                    "max_rel_diff_own_routes": rel_free,
+                                    "assignments_rerouted": rerouted},
+          "stats": stats})
+    if launches != expected:
+        fail(f"moe_350m serving flash launches {launches} != {expected}")
+    if syncs != llama_syncs:
+        fail(f"a moe_350m decode round's host syncs {syncs} != "
+             f"llama_350m's {llama_syncs}")
+    if not all(exact32):
+        fail(f"float32 moe_350m streams differ from generate: {exact32}")
+    if not torch.isfinite(lf).all() or rel > 5e-2:
+        fail(f"moe_350m flash logits off dense by {rel}")
+    return launches
+
+
+def moe_train(torch, np, fa, fu) -> dict:
+    """moe_350m through the PS round in process, as ps_round runs it: a
+    CoordinatorCore with one worker, a ParameterServerCore over
+    make_optimizer("pallas_adam"), a port Trainer (bf16, flash, remat
+    "full", loss_chunk 128) on one batch of 8 x 1024 tokens, 2 rounds.
+    The launches must be the design's (a step: 48 flash_fwd with the
+    recompute, 24 dQ, 24 dK/dV; an apply: the update planner's tables);
+    remat's recompute routes as the forward; on the same store and batch
+    given the same routes, round 1's loss within 1e-3 of dense
+    attention's, and each gradient tensor within 2^-5 in L2 of dense
+    attention's in float32 (the bf16 dense gradients reported beside).
+    Reports each round's loss split into NLL and moe_aux_coef x aux, each
+    MoE layer's dropped share of its assignments at capacity 1280 and its
+    aux loss, and the peak card memory.  Returns the path's launch
+    counts."""
+    from parameter_server_distributed_tpu_torch.async_sgd.device_optimizer \
+        import PallasOptimizer
+    from parameter_server_distributed_tpu_torch.core.coordinator_core \
+        import CoordinatorCore
+    from parameter_server_distributed_tpu_torch.core.optimizer import \
+        make_optimizer
+    from parameter_server_distributed_tpu_torch.core.ps_core import \
+        ParameterServerCore
+    from parameter_server_distributed_tpu_torch.models.convert import \
+        params_from_numpy
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model_and_batches
+    from parameter_server_distributed_tpu_torch.models.transformer import (
+        Transformer, causal_attention, flash_attention_auto)
+    from parameter_server_distributed_tpu_torch.obs import stats
+    from parameter_server_distributed_tpu_torch.worker.trainer import Trainer
+
+    b, s, lr, rounds = TRAIN["batch"], TRAIN["seq"], TRAIN["lr"], \
+        MOE["rounds"]
+    model, batches = get_model_and_batches("moe_350m", b, seed=0,
+                                           dtype="bf16")
+    c = model.config
+    if model.attention_fn is not flash_attention_auto or not c.remat or \
+            c.remat_policy != "full" or c.loss_chunk != 128:
+        fail(f"moe_350m training config: attention "
+             f"{model.attention_fn.__name__}, remat {c.remat} "
+             f"{c.remat_policy}, loss_chunk {c.loss_chunk}")
+    coord = CoordinatorCore("127.0.0.1", 50051)
+    coord.register_worker(0, "127.0.0.1", 6000, "worker0")
+    opt = make_optimizer("pallas_adam", lr)
+    if not (isinstance(opt, PallasOptimizer) and opt.device.type == "cuda"
+            and stats.counter("ps.apply.device_fallback").value == 0):
+        fail(f"pallas_adam is {type(opt).__name__}, not PallasOptimizer on "
+             f"the card")
+    ps = ParameterServerCore(total_workers=1, optimizer=opt,
+                             live_workers_fn=coord.width_provider())
+    trainer = Trainer(model)
+    batch = next(batches)
+    init = trainer.init_params(0)
+    ps.initialize_parameters(init)
+    tap = RouteTap(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fu.reset_launches()
+    losses, round_s = [], []
+    for it in range(1, rounds + 1):
+        t0 = time.perf_counter()
+        _, params, ready = ps.serve_parameters(it)
+        grads, loss = trainer.compute_gradients(params, batch)
+        if it == 1:     # kept for the check below, outside the round's time
+            t1 = time.perf_counter()
+            first_grads = {n: g.copy() for n, g in grads.items()}
+            t0 += time.perf_counter() - t1
+        result = ps.receive_gradients(0, it, grads)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if not (ready and result.success and result.aggregation_complete):
+            fail(f"moe_350m round {it}: ready {ready}, push {result}")
+    launches = {**fa.launches, **fu.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del grads, params
+    tap.close()
+    expected = {"flash_fwd": 2 * c.n_layers * rounds,
+                "flash_bwd_dq": c.n_layers * rounds,
+                "flash_bwd_dkv": c.n_layers * rounds,
+                "fused_sgd": 0, "fused_momentum": 0,
+                "fused_adam": update_launches(fu, model.param_shapes())
+                * rounds}
+    # each round's forward routes, then remat's recompute of them in the
+    # backward pass (in reverse order); a round's loss is its NLL plus
+    # moe_aux_coef times the layers' aux
+    n_moe = MOE["moe_layers"]
+    per_round = []
+    for it in range(rounds):
+        fwd = tap.seen[2 * n_moe * it:2 * n_moe * it + n_moe]
+        layers = []
+        for i, r in zip(range(1, c.n_layers, 2), fwd):
+            frac = torch.bincount(r.top_idx.reshape(-1),
+                                  minlength=c.moe_experts).float()
+            frac = frac / r.top_idx.numel()
+            layers.append({"layer": i, "capacity": r.capacity,
+                           "dropped_share": float((~r.keep).float().mean()),
+                           "aux": float(c.moe_experts * torch.sum(
+                               frac * r.probs.detach().mean(dim=0)))})
+        aux = sum(layer["aux"] for layer in layers)
+        per_round.append({"loss": losses[it], "aux_total": aux,
+                          "nll": losses[it] - c.moe_aux_coef * aux,
+                          "moe_layers": layers})
+    first = tap.seen[:2 * n_moe]          # round 1: forward, recompute
+    same_recompute = all(torch.equal(a.top_idx, r.top_idx)
+                         and torch.equal(a.keep, r.keep)
+                         for a, r in zip(first[:n_moe],
+                                         first[n_moe:][::-1]))
+    del tap
+    # round 1 with dense attention on the same store and batch: its loss
+    # without the flash forward's routes (reported), and its loss and
+    # gradients given them (forward and recompute replayed), in bf16 and
+    # in float32 (the plain version: the same function without bf16's
+    # rounding)
+    del ps, opt, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = Transformer(c, attention_fn=causal_attention)
+    dparams = params_from_numpy(init, c, device="cuda")
+    with torch.inference_mode():
+        free_loss = float(dense.loss(dparams, batch))
+    del dparams
+    grads_of = {"flash": first_grads}
+    for name, cfg in (("dense", c), ("f32", dataclasses.replace(
+            c, dtype=torch.float32))):
+        dense = Transformer(cfg, attention_fn=causal_attention)
+        dtap = RouteTap(dense, replay=first)
+        grads_of[name], loss_ = Trainer(dense).compute_gradients(init,
+                                                                 batch)
+        dtap.close()
+        if name == "dense":
+            dense_loss, rerouted = loss_, [int(x) for x in dtap.changed]
+        del dense, dtap
+        torch.cuda.empty_cache()
+    del first, init, first_grads
+    # each tensor's difference: its largest |entry| over the reference's
+    # largest, and its L2 norm over the reference's
+    diffs = {pair: {"max": {}, "l2": {}} for pair in (
+        "flash_vs_dense", "flash_vs_f32", "dense_vs_f32")}
+    for name in grads_of["f32"]:
+        g = {k: torch.from_numpy(v[name]).cuda() for k, v in grads_of.items()}
+        for pair in diffs:
+            x, ref = (g[k] for k in pair.split("_vs_"))
+            d = x - ref
+            diffs[pair]["max"][name] = float(
+                d.abs().max() / ref.abs().max().clamp_min(1e-30))
+            diffs[pair]["l2"][name] = float(
+                d.norm() / ref.norm().clamp_min(1e-30))
+    del grads_of, g, d, x, ref
+    torch.cuda.empty_cache()
+
+    def summary(by_name: dict) -> dict:
+        worst = max(by_name, key=by_name.get)
+        return {"worst": worst, "worst_rel": by_name[worst],
+                "rel_p50": float(np.median(list(by_name.values())))}
+
+    # held: each tensor of the flash step within 2^-5 of the float32
+    # plain gradient in L2 (the bf16 dense path, reported beside it, is
+    # as far: bf16's rounding through 24 layers)
+    grad_rel = diffs["flash_vs_f32"]["l2"]
+    worst = max(grad_rel, key=grad_rel.get)
+    emit({"phase": "moe_train", "model": "moe_350m", "dtype": "bfloat16",
+          "params": model.num_params(), "batch": b, "seq": s,
+          "remat": c.remat_policy, "loss_chunk": c.loss_chunk,
+          "optimizer": "pallas_adam", "lr": lr, "rounds": rounds,
+          "losses": losses, "round_s": round_s, "peak_mem_gb": peak,
+          "launches": launches, "expected_launches": expected,
+          "rounds_split": per_round,
+          "recompute_routes_equal": same_recompute,
+          "first_loss_dense": dense_loss,
+          "first_loss_dense_own_routes": free_loss,
+          "assignments_rerouted": rerouted, "tol_first_rel": 1e-3,
+          "first_grads": {"tensors": len(grad_rel), "tol_rel": 2 ** -5,
+                          **{pair: {m: summary(v) for m, v in d.items()}
+                             for pair, d in diffs.items()}}})
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"moe_350m losses not finite: {losses}")
+    if launches != expected:
+        fail(f"moe_350m training launches {launches} != {expected}")
+    if any(layer["capacity"] != MOE["capacity"]
+           for r in per_round for layer in r["moe_layers"]):
+        fail(f"moe_350m training capacity {per_round} != "
+             f"{MOE['capacity']}")
+    if abs(losses[0] - dense_loss) > 1e-3 * abs(dense_loss):
+        fail(f"moe_350m first loss {losses[0]} off dense {dense_loss}")
+    if not same_recompute:
+        fail("remat's recompute routed moe_350m unlike its forward")
+    if len(grad_rel) != MOE["tensors"] or not all(
+            math.isfinite(x) and x <= 2 ** -5 for x in grad_rel.values()):
+        fail(f"moe_350m's first gradients off the float32 plain ones on "
+             f"the same routes: {worst} by {grad_rel[worst]} in L2")
+    return launches
+
+
+def hf_serve(torch, np, fa, rng) -> dict:
+    """The HF conversion on the card: a GPT-2 small state dict under the
+    Hugging Face names (random, from numpy at seed 0) through the port's
+    from_hf_gpt2 (float32, the --hf-gpt2 default), served by a
+    DecodeServer (4 slots x 1024: learned positions, LayerNorm, biases,
+    flash prefill) with 4 prompts of 129-992 tokens and 32 greedy tokens
+    each after one warm-up request a bucket: flash launches 12 a prefill
+    exactly, the first stream equal to
+    generate's; then the llama_350m store round to_hf_llama ->
+    from_hf_llama, byte for byte.  Returns the burst's launch counts."""
+    from parameter_server_distributed_tpu_torch.models import hf, serving
+    from parameter_server_distributed_tpu_torch.models.generation import \
+        generate
+    from parameter_server_distributed_tpu_torch.models.registry import \
+        get_model
+    from parameter_server_distributed_tpu_torch.models.transformer import \
+        flash_attention_auto
+
+    t0 = time.perf_counter()
+    state = gpt2_state(np)
+    t1 = time.perf_counter()
+    model, params = hf.from_hf_gpt2(StandIn(GPT2, state), device="cuda")
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t1
+    c = model.config
+    del state
+    if model.attention_fn is not flash_attention_auto:
+        fail("PSDT_FLASH_ATTENTION=1 did not select the flash kernel")
+    if (c.pos_emb, c.norm, c.bias, c.d_ff, c.dtype) != (
+            "learned", "layernorm", True, 3072, torch.float32):
+        fail(f"from_hf_gpt2 gave {c}")
+    prompts = [rng.integers(0, c.vocab, n).tolist() for n in HF_PROMPT_LENS]
+    srv = serving.DecodeServer(model, params, slots=4, max_len=1024,
+                               device="cuda")
+    warm_buckets(serving, srv, prompts[0], HF_PROMPT_LENS, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    b = burst(torch, srv, prompts)
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"flash_fwd": c.n_layers * len(prompts), "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+    check_streams(b, c.vocab, "GPT-2 serving")
+    first = b["results"][b["rids"][0]]
+    gen = generate(model, params, [prompts[0]], NEW_TOKENS)[0].tolist()
+    n_params = model.num_params()
+    del srv, params, model
+    torch.cuda.empty_cache()
+
+    # llama_350m to the transformers names and back
+    llama = get_model("llama_350m", dtype="bf16")
+    lparams = llama.init_params(0, device="cuda")
+    t2 = time.perf_counter()
+    sd = hf.to_hf_llama(llama, lparams)
+    back_model, back = hf.from_hf_llama(StandIn(LLAMA_HF, sd),
+                                        dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    round_trip_s = time.perf_counter() - t2
+    arch = ("vocab", "d_model", "n_heads", "kv_heads", "n_layers", "d_ff",
+            "max_seq", "norm_eps", "rope_theta", "mlp_act", "pos_emb",
+            "norm", "bias", "dtype")
+    same_arch = all(getattr(back_model.config, f) == getattr(llama.config, f)
+                    for f in arch)
+    same_bytes = (list(back) == list(lparams) and all(
+        torch.equal(back[n].view(torch.int16), lparams[n].view(torch.int16))
+        for n in lparams))
+    del sd, back, lparams, llama, back_model
+    torch.cuda.empty_cache()
+    emit({"phase": "hf_serve", "model": "gpt2 (small's shape)",
+          "dtype": "float32", "params": n_params,
+          "state_s": t1 - t0, "convert_s": convert_s,
+          "prompt_lens": list(HF_PROMPT_LENS), "slots": 4, "max_len": 1024,
+          **burst_report(np, b), "peak_mem_gb": peak,
+          "flash_launches": launches, "expected_launches": expected,
+          "first_stream_equal_generate": first == gen,
+          "llama_350m_round_trip": {"same_architecture": same_arch,
+                                    "bytes_equal": same_bytes,
+                                    "seconds": round_trip_s}})
+    if launches != expected:
+        fail(f"GPT-2 serving flash launches {launches} != {expected}")
+    if first != gen:
+        fail("the GPT-2 server's first stream differs from generate")
+    if not (same_arch and same_bytes):
+        fail(f"llama_350m to_hf_llama -> from_hf_llama: architecture "
+             f"{same_arch}, bytes {same_bytes}")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside this script")
@@ -5834,6 +6407,21 @@ def main() -> int:
                                                                 fa)
     emit({"phase": "ps_device_rounded",
           "elapsed_s": time.perf_counter() - t_start})
+    # the MoE transformer and the HF conversion, each alone on an emptied
+    # card
+    rng19 = np.random.default_rng(19)
+    slice19 = {}
+    for name, phase in (
+            ("moe_serve", lambda: moe_serve(torch, np, fa, rng19)),
+            ("moe_train", lambda: moe_train(torch, np, fa, fu)),
+            ("hf_serve", lambda: hf_serve(torch, np, fa, rng19))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        slice19[name] = phase()
+        emit({"phase": f"{name}_done",
+              "elapsed_s": time.perf_counter() - t_start})
+    gc.collect()
+    torch.cuda.empty_cache()
     # the wire round's two legs and config 1's four, each its own cluster
     # of processes, run at once (their round times taken beside each
     # other's; the checks are each leg's own)
@@ -5911,6 +6499,8 @@ def main() -> int:
                       "train": train_launches.get(name, 0),
                       "ps_round": round_launches.get(name, 0),
                       "ps_device_round": device_launches.get(name, 0),
+                      **{path: slice19[path].get(name, 0)
+                         for path in ("moe_serve", "moe_train", "hf_serve")},
                       "ps_wire_round": wire_launches.get(name, 0),
                       "config1_wire": config1_launches.get(name, 0),
                       "mlp_train": mlp_launches.get(name, 0),
@@ -5938,15 +6528,19 @@ def main() -> int:
         kernels.append(entry)
     # the device close's kernels run on the device-close paths only, the
     # int8 serving kernels on serve_int8, serve_spec, fleet_update and
-    # delta_follow only; flash_fwd on both fleet paths and delta_follow
+    # delta_follow only; flash_fwd on both fleet paths, delta_follow and
+    # the three paths of slice 19, the backward kernels and Adam on
+    # moe_train
     if any(k["launches"] <= 0 or (k["name"] in INT8_REPLACES and min(
             k["launches_by_path"][path]
             for path in ("serve_int8", "serve_spec", "fleet_update",
                          "delta_follow")) <= 0)
            or (k["name"] == "flash_fwd" and min(
                k["launches_by_path"][path]
-               for path in ("fleet_wire", "fleet_update",
-                            "delta_follow")) <= 0)
+               for path in ("fleet_wire", "fleet_update", "delta_follow",
+                            "moe_serve", "moe_train", "hf_serve")) <= 0)
+           or (k["name"] in ("flash_bwd_dq", "flash_bwd_dkv", "fused_adam")
+               and k["launches_by_path"]["moe_train"] <= 0)
            or (k["name"] not in DA_REPLACES and k["name"] not in
                INT8_REPLACES and k["launches_by_path"]["ps_round"] <= 0)
            or (k["name"] == "fused_sgd"

@@ -11,6 +11,8 @@
          [--adaptive-draft] [--draft-cost-ratio=R]] \\
         [--dtype=bf16] [--scan-layers | --no-scan-layers] \\
         [--tokens=1,2,3] [--device=cuda|cpu]
+    python -m parameter_server_distributed_tpu_torch.cli.generate_main \\
+        --hf-gpt2=<checkout> [--tokens=1,2,3 | --prompt=...] ...
 
 Parameters come from ``--ckpt`` (the host binary checkpoint format, the
 files the PS writes; adapters of a LoRA run are merged with
@@ -26,7 +28,11 @@ speculative decoding with that registry LM as the draft
 the depth adaptive up to it with ``--adaptive-draft``.  Prompts are
 byte-tokenized (data/text.ByteTokenizer, vocab 258); ``--tokens`` takes
 raw comma-separated ids and prints ids.  Runs on the CUDA card unless
-``--device=cpu`` asks for the CPU.
+``--device=cpu`` asks for the CPU.  ``--hf-gpt2`` converts a
+``transformers`` GPT-2 checkpoint (a local ``save_pretrained`` directory
+or a hub name already in the local cache; models/hf.py ``from_hf_gpt2``,
+f32 unless ``--dtype``) and takes its prompts through the checkpoint's
+own tokenizer when it ships one, else raw ``--tokens``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ KNOWN_FLAGS = frozenset({
     "tokens", "prompt", "top-k", "top-p", "temperature", "max-new",
     "lora-alpha", "quant", "kv-cache", "device", "beam", "length-penalty",
     "draft-model", "draft-ckpt", "draft-seed", "draft-len",
-    "adaptive-draft", "draft-cost-ratio", "draft-lora-alpha",
+    "adaptive-draft", "draft-cost-ratio", "draft-lora-alpha", "hf-gpt2",
 })
 
 # the reference's other pst-generate flags, and where each is planned
@@ -49,8 +55,6 @@ UNPORTED_FLAGS = {
     **dict.fromkeys(("ckpt-dir", "avg-last"),
                     "sharded checkpoints (ROADMAP.md Queue 1, item 8, "
                     "train_loop: checkpoint/sharded.py)"),
-    "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, item 7, other model "
-               "families: hf.py)",
 }
 
 
@@ -150,6 +154,32 @@ def load_params(flags: dict, model, seed: int, device,
             f"fresh init (seed {seed})")
 
 
+def load_hf(flags: dict, device):
+    """--hf-gpt2=<local dir or cached hub name>: convert a
+    ``transformers`` GPT-2 checkpoint (models/hf.py) in ``--dtype``
+    (default f32) onto ``device``, with its own tokenizer where its files
+    exist.  Returns (model, params, tokenizer or None).  ``transformers``
+    is imported here only: nothing else of the port needs it."""
+    import torch
+    import transformers
+
+    from ..models.hf import from_hf_gpt2
+    from ..models.registry import resolve_dtype
+
+    src = flags["hf-gpt2"]
+    hf_model = transformers.GPT2LMHeadModel.from_pretrained(src)
+    dtype_flag = flags.get("dtype", "")
+    dtype = resolve_dtype(dtype_flag) if dtype_flag else torch.float32
+    model, params = from_hf_gpt2(
+        hf_model, dtype=dtype, scan_layers=("scan-layers" in flags),
+        device=device)
+    try:
+        tok = transformers.AutoTokenizer.from_pretrained(src)
+    except Exception:  # noqa: BLE001 — tokenizer files may be absent
+        tok = None
+    return model, params, tok
+
+
 def match_layout(model, params):
     """Convert a store to the layout this model uses (stacked blocks/*
     for scan_layers, unrolled layer<i>/* otherwise)."""
@@ -212,10 +242,19 @@ def main(argv: list[str] | None = None) -> int:
     from ..models.quant import quantize_params
 
     device = resolve_device(flags.get("device"))
-    model = build_model(flags)
     seed = int(flags.get("seed", 0))
-    params, source = load_params(flags, model, seed, device)
-    params = match_layout(model, params)
+    hf_tok = None
+    if flags.get("hf-gpt2"):
+        if flags.get("ckpt"):
+            raise ValueError("--hf-gpt2 provides its own weights; it does "
+                             "not combine with --ckpt/--ckpt-dir")
+        model, params, hf_tok = load_hf(flags, device)
+        source = (f"HF GPT-2 checkpoint {flags['hf-gpt2']} "
+                  f"({model.num_params() / 1e6:.1f}M params)")
+    else:
+        model = build_model(flags)
+        params, source = load_params(flags, model, seed, device)
+        params = match_layout(model, params)
     if flags.get("quant"):
         params = quantize_params(params)
         source += " (int8 weights)"
@@ -225,11 +264,18 @@ def main(argv: list[str] | None = None) -> int:
     if flags.get("tokens"):
         ids = [int(t) for t in flags["tokens"].split(",")]
         decode_text = False
+    elif hf_tok is not None:
+        ids = hf_tok.encode(flags.get("prompt", "hello"))
+        decode_text = True
+    elif flags.get("hf-gpt2"):
+        raise ValueError("--hf-gpt2 checkpoint has no tokenizer files; "
+                         "pass raw ids via --tokens=1,2,3")
     else:
         require_vocab(model.config.vocab, tokenizer)
         ids = tokenizer.encode(flags.get("prompt", "hello")) or [
             tokenizer.BOS]
         decode_text = True
+    eos_id = hf_tok.eos_token_id if hf_tok is not None else tokenizer.EOS
     top_k = int(flags.get("top-k", 0))
     top_p = float(flags.get("top-p", 0.0))
     beam = int(flags.get("beam", 0))
@@ -282,7 +328,7 @@ def main(argv: list[str] | None = None) -> int:
         # mode has no reserved stop id
         out, score = generation.beam_search(
             model, params, prompt, max_new, beam_width=beam,
-            eos_id=tokenizer.EOS if decode_text else None,
+            eos_id=eos_id if decode_text else None,
             length_penalty=float(flags.get("length-penalty", 0.0)),
             device=device)
         print(f"beam: width {beam}, joint logprob {float(score[0]):.3f}",
@@ -294,10 +340,11 @@ def main(argv: list[str] | None = None) -> int:
             device=device)
     tokens = out[0].cpu().numpy()
     if decode_text:
-        stop = np.nonzero(tokens == tokenizer.EOS)[0]
+        stop = np.nonzero(tokens == eos_id)[0]
         if stop.size:      # trim at the first EOS (beam padding or natural)
             tokens = tokens[:int(stop[0])]
-        print(tokenizer.decode(tokens), flush=True)
+        print(hf_tok.decode(tokens) if hf_tok is not None
+              else tokenizer.decode(tokens), flush=True)
     else:
         print(",".join(str(int(t)) for t in tokens), flush=True)
     return 0

@@ -4,7 +4,7 @@
         --model=llama_350m [--dtype=bf16] [--seed=0] [--slots=8] \\
         [--max-len=2048] [--temperature=0.8 --top-k=40 --top-p=0.9] \\
         [--eos=ID] [--default-max-new=64] [--device=cuda|cpu] \\
-        [--ckpt=path.ckpt [--lora-alpha=A]] \\
+        [--ckpt=path.ckpt [--lora-alpha=A] | --hf-gpt2=<checkout>] \\
         [--scan-layers | --no-scan-layers] \\
         [--quant=int8] [--kv-cache=int8] \\
         [--prompt-cache=N]   # the radix prefix cache: repeated prompts
@@ -25,7 +25,10 @@
         [--report=PATH]      # exit report (cli/exit_report.py)
 
 Weights come from ``--ckpt`` (the host checkpoint format the PS writes;
-a LoRA run's adapters are merged with ``--lora-alpha``) or fresh from
+a LoRA run's adapters are merged with ``--lora-alpha``), from a
+``transformers`` GPT-2 checkpoint converted with ``--hf-gpt2`` (model
+and weights; text prompts through its own tokenizer when it ships one,
+whose EOS then ends a request unless ``--eos`` is given) or fresh from
 ``--seed``.  ``--quant=int8`` quantizes them (models/quant.py) and
 ``--kv-cache=int8`` the slot cache.  ``--follow`` subscribes to a
 training PS (delta/subscriber.py ``WeightFollower``, ``SubscribeWeights``
@@ -86,7 +89,7 @@ KNOWN_FLAGS = frozenset({
     "scan-layers", "no-scan-layers", "draft-model", "draft-ckpt",
     "draft-seed", "draft-len", "no-adaptive-draft", "draft-cost-ratio",
     "draft-lora-alpha", "serve-port", "coordinator", "server-id",
-    "report", "follow", "subscriber-id",
+    "report", "follow", "subscriber-id", "hf-gpt2",
 })
 
 # the reference's other pst-serve flags, and where each is planned
@@ -94,8 +97,6 @@ UNPORTED_FLAGS = {
     **dict.fromkeys(("ckpt-dir", "avg-last"),
                     "sharded checkpoints (ROADMAP.md Queue 1, item 8, "
                     "train_loop: checkpoint/sharded.py)"),
-    "hf-gpt2": "HF conversion (ROADMAP.md Queue 1, item 7, other model "
-               "families: hf.py)",
 }
 
 
@@ -165,15 +166,21 @@ def main(argv: list[str] | None = None) -> int:
     from ..models.serving import DecodeServer
 
     device = resolve_device(flags.get("device"))
-    model = generate_main.build_model(flags)
     seed = int(flags.get("seed", 0))
-    params, source = generate_main.load_params(flags, model, seed, device)
-    params = generate_main.match_layout(model, params)
+    hf_tok = None
+    if flags.get("hf-gpt2"):
+        model, params, hf_tok = generate_main.load_hf(flags, device)
+        source = f"HF GPT-2 checkpoint {flags['hf-gpt2']}"
+    else:
+        model = generate_main.build_model(flags)
+        params, source = generate_main.load_params(flags, model, seed,
+                                                   device)
+        params = generate_main.match_layout(model, params)
+        source = f"{flags.get('model', 'small_lm')} {source}"
     if flags.get("quant"):
         params = quantize_params(params)
         source += " (int8 weights)"
-    print(f"serving: {flags.get('model', 'small_lm')} {source} on {device}",
-          file=sys.stderr)
+    print(f"serving: {source} on {device}", file=sys.stderr)
     spec_kwargs: dict = {}
     if flags.get("draft-model"):
         # speculative continuous batching, greedy or plain --temperature
@@ -214,7 +221,8 @@ def main(argv: list[str] | None = None) -> int:
         return quantize_params(params) if flags.get("quant") else params
 
     tokenizer = ByteTokenizer()
-    eos = int(flags["eos"]) if flags.get("eos") else None
+    eos = int(flags["eos"]) if flags.get("eos") else (
+        hf_tok.eos_token_id if hf_tok is not None else None)
     srv = DecodeServer(
         model, params,
         slots=int(flags.get("slots", "8")),
@@ -272,8 +280,9 @@ def main(argv: list[str] | None = None) -> int:
             if eos is not None:
                 enders.add(eos)
             cut = [i for i, t in enumerate(tokens) if t in enders]
-            done["text"] = tokenizer.decode(tokens[:cut[0]] if cut
-                                            else tokens)
+            trim = tokens[:cut[0]] if cut else tokens
+            done["text"] = (hf_tok.decode(trim) if hf_tok is not None
+                            else tokenizer.decode(trim))
         else:
             done["tokens"] = tokens
         _emit(done)
@@ -314,8 +323,12 @@ def main(argv: list[str] | None = None) -> int:
                     ids = [int(t) for t in req["tokens"]]
                     is_text = False
                 elif "prompt" in req:
-                    require_vocab(model.config.vocab, tokenizer)
-                    ids = tokenizer.encode(req["prompt"]) or [tokenizer.BOS]
+                    if hf_tok is not None:
+                        ids = hf_tok.encode(req["prompt"])
+                    else:
+                        require_vocab(model.config.vocab, tokenizer)
+                        ids = (tokenizer.encode(req["prompt"])
+                               or [tokenizer.BOS])
                     is_text = True
                 else:
                     raise ValueError("request needs 'prompt' or 'tokens'")

@@ -40,9 +40,10 @@ def params_from_numpy(store: Mapping[str, np.ndarray],
                       config: Config, device=None) -> dict[str, torch.Tensor]:
     """Convert a numpy parameter store into the layout ``config`` names,
     in ``config.dtype``, on ``device`` (default: the card): a
-    transformer's in the unrolled (``layer<i>/*``) or the stacked
-    (``blocks/*``) layout, an MLP's (``layer<i>/w``, ``layer<i>/b``), a
-    ResNet's or a ViT's; a ``(q, scale)`` pair keeps its int8 codes and
+    transformer's in the unrolled (``layer<i>/*``, an MoE layer's router
+    and ``[E, in, out]`` expert banks among them) or, for dense layers,
+    the stacked (``blocks/*``) layout, an MLP's (``layer<i>/w``,
+    ``layer<i>/b``), a ResNet's or a ViT's; a ``(q, scale)`` pair keeps its int8 codes and
     f32 scales.  Raises on names or shapes the config does not expect."""
     dev = resolve_device(device)
     params = _in_layout({name: QTensor(_tensor(value[0]), _tensor(value[1]))

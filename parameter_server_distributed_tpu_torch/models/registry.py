@@ -6,6 +6,7 @@ file-backed data of ``data_path`` (data/files.py, data/text.py).
 
 from __future__ import annotations
 
+import inspect
 from functools import partial
 from typing import Callable, Iterator
 
@@ -17,7 +18,8 @@ from ..data.synthetic import (synthetic_image_batches, synthetic_mnist,
 from ..device import resolve_device
 from .mlp import MLP, billion_param_mlp, mnist_mlp
 from .resnet import ResNet, resnet18, resnet50
-from .transformer import Transformer, llama_350m, lm_350m, small_lm, tiny_lm
+from .transformer import (Transformer, llama_350m, lm_350m, moe_350m, moe_lm,
+                          small_lm, switch_lm, tiny_lm)
 from .vit import ViT, vit_s16, vit_tiny
 
 # token rows (file data: a token shard, or a .txt corpus)
@@ -31,6 +33,13 @@ REGISTRY: dict[str, Callable[..., Transformer]] = {
     "lm_350m_hd128": partial(lm_350m, n_heads=8),
     # LLaMA-architecture flagship (SwiGLU + GQA)
     "llama_350m": llama_350m,
+    # mixture-of-experts rows (models/moe.py): test-scale Switch top-1,
+    # top-2 and all-MoE, and the flagship-scale sparse LM (lm_350m's
+    # trunk, every 2nd FFN routed over 8 experts, ~1.07B parameters)
+    "moe_lm": partial(moe_lm, vocab=1024, seq=256),
+    "moe_lm_top2": partial(moe_lm, vocab=1024, seq=256, top_k=2),
+    "switch_lm": partial(switch_lm, vocab=1024, seq=256),
+    "moe_350m": moe_350m,
 }
 
 
@@ -85,27 +94,40 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 def get_model(name: str, dtype: str = "", remat: bool | None = None,
-              scan: bool | None = None) -> Transformer | MLP | ResNet | ViT:
+              scan: bool | None = None,
+              seq_len: int = 0) -> Transformer | MLP | ResNet | ViT:
     """Build a registry model at its factory's defaults; ``dtype``
-    ("f32"/"bf16"), ``remat`` and ``scan`` (the stacked-layer layout)
-    override the factory's where given (None keeps its default).  A
-    classification model takes neither remat nor scan: asking for either
-    raises, turning either off is a no-op, as in the reference."""
+    ("f32"/"bf16"), ``remat``, ``scan`` (the stacked-layer layout) and
+    ``seq_len`` (an LM's sequence length) override the factory's where
+    given (None or 0 keeps its default).  A model that cannot honour
+    remat or scan (a classification model; an MoE LM's layers are not
+    homogeneous, so it takes no scan) raises when asked for it, and
+    turning it off is a no-op, as in the reference."""
     kwargs: dict = {"dtype": resolve_dtype(dtype)} if dtype else {}
     if name in XY_REGISTRY:
         for flag, value in (("remat", remat), ("scan_layers", scan)):
             if value:
                 raise ValueError(f"model {name!r} does not support {flag} "
                                  f"(transformer LMs only)")
+        if seq_len:
+            raise ValueError(f"model {name!r} has no sequence length "
+                             f"(transformer LMs only)")
         return XY_REGISTRY[name][0](**kwargs)
     if name not in REGISTRY:
         raise ValueError(f"unknown model {name!r}; have "
                          f"{sorted(REGISTRY) + sorted(XY_REGISTRY)}")
+    factory = REGISTRY[name]
     if remat is not None:
         kwargs["remat"] = remat
     if scan is not None:
-        kwargs["scan_layers"] = scan
-    return REGISTRY[name](**kwargs)
+        if "scan_layers" in inspect.signature(factory).parameters:
+            kwargs["scan_layers"] = scan
+        elif scan:
+            raise ValueError(f"model {name!r} does not support scan_layers "
+                             f"(dense transformer LMs only)")
+    if seq_len:
+        kwargs["seq"] = seq_len
+    return factory(**kwargs)
 
 
 def _xy_on_device(batches, dev: torch.device) -> Iterator[tuple]:
@@ -120,7 +142,8 @@ def _tokens_on_device(batches, dev: torch.device) -> Iterator[torch.Tensor]:
 
 def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
                           data_path: str = "", dtype: str = "", device=None,
-                          remat: bool | None = None, scan: bool | None = None
+                          remat: bool | None = None, scan: bool | None = None,
+                          seq_len: int = 0
                           ) -> tuple[Transformer | MLP | ResNet | ViT,
                                      Iterator]:
     """(model, batch iterator): the model from :func:`get_model` and its
@@ -134,7 +157,7 @@ def get_model_and_batches(name: str, batch_size: int, seed: int = 0,
     ``data_path``, file-backed data by the row's kind: an LM reads a
     token shard or a ``.txt`` corpus (:func:`lm_batches`), a
     classification row an npz of ``x`` and ``y`` (``npz_stream``)."""
-    model = get_model(name, dtype, remat=remat, scan=scan)
+    model = get_model(name, dtype, remat=remat, scan=scan, seq_len=seq_len)
     dev = resolve_device(device)
     if name in XY_REGISTRY:
         if data_path:

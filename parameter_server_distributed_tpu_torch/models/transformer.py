@@ -36,13 +36,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ..device import resolve_device
+from .moe import MoEConfig, MoELayer
 from .quant import QTensor, is_quantized, wdot
 
 Tensor = torch.Tensor
 
 # where each unported capability is planned
 ROADMAP_SPMD = "ROADMAP.md Queue 1, multi-device SPMD"
-ROADMAP_MOE = "ROADMAP.md Queue 1, other model families (models/moe.py)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +65,15 @@ class TransformerConfig:
     # LM head + loss in seq chunks of this many positions, each recomputed
     # in the backward pass (0 = one pass over the whole sequence)
     loss_chunk: int = 0
-    # mixture-of-experts fields are carried; moe_every > 0 is refused by
-    # Transformer until models/moe.py is ported
+    # mixture-of-experts: every moe_every-th layer (1-based; 0 = dense
+    # everywhere) routes its FFN over moe_experts experts (models/moe.py);
+    # the load-balancing aux loss joins the LM loss times moe_aux_coef
     moe_every: int = 0
     moe_experts: int = 8
+    # experts per token: 1 = Switch, 2 = Mixtral-style top-2
     moe_top_k: int = 1
     # stacked layout: block weights as blocks/<suffix> with a leading [L]
+    # (homogeneous layers only: no MoE interleaving)
     scan_layers: bool = False
     moe_capacity: float = 1.25
     moe_aux_coef: float = 0.01
@@ -288,11 +291,18 @@ class Transformer:
             raise ValueError(
                 f"n_heads={config.n_heads} must divide by "
                 f"n_kv_heads={config.kv_heads}")
-        if config.moe_every > 0:
-            raise NotImplementedError(f"MoE layers: {ROADMAP_MOE}")
+        if config.scan_layers and config.moe_every > 0:
+            raise ValueError(
+                "scan_layers needs homogeneous layers; MoE interleaving "
+                "(moe_every > 0) makes the scan body layer-dependent")
         if mesh is not None:
             raise NotImplementedError(f"a mesh: {ROADMAP_SPMD}")
         self.config = config
+        self._moe = (MoELayer(MoEConfig(
+            d_model=config.d_model, d_ff=config.d_ff,
+            num_experts=config.moe_experts, top_k=config.moe_top_k,
+            capacity_factor=config.moe_capacity, dtype=config.dtype))
+            if config.moe_every > 0 else None)
         self.attention_fn = attention_fn or _default_attention()
 
     # ------------------------------------------------------------- shapes
@@ -314,19 +324,26 @@ class Transformer:
         if c.bias:
             block.update({"attn/bq": (c.d_model,), "attn/bk": (kv_dim,),
                           "attn/bv": (kv_dim,), "attn/bo": (c.d_model,)})
-        block["mlp/w1"] = (c.d_model, c.d_ff)
-        block["mlp/w2"] = (c.d_ff, c.d_model)
+        mlp = {"mlp/w1": (c.d_model, c.d_ff), "mlp/w2": (c.d_ff, c.d_model)}
         if c.mlp_act == "swiglu":
-            block["mlp/w3"] = (c.d_model, c.d_ff)
+            mlp["mlp/w3"] = (c.d_model, c.d_ff)
         if c.bias:
-            block.update({"mlp/b1": (c.d_ff,), "mlp/b2": (c.d_model,)})
+            mlp.update({"mlp/b1": (c.d_ff,), "mlp/b2": (c.d_model,)})
         if c.scan_layers:
-            for suffix, shape in block.items():
+            for suffix, shape in {**block, **mlp}.items():
                 shapes[f"blocks/{suffix}"] = (c.n_layers, *shape)
         else:
             for i in range(c.n_layers):
+                p = f"layer{i}"
                 for suffix, shape in block.items():
-                    shapes[f"layer{i}/{suffix}"] = shape
+                    shapes[f"{p}/{suffix}"] = shape
+                if c.is_moe_layer(i):
+                    shapes[f"{p}/moe/router/w"] = (c.d_model, c.moe_experts)
+                    shapes[f"{p}/moe/w1"] = (c.moe_experts, c.d_model, c.d_ff)
+                    shapes[f"{p}/moe/w2"] = (c.moe_experts, c.d_ff, c.d_model)
+                else:
+                    for suffix, shape in mlp.items():
+                        shapes[f"{p}/{suffix}"] = shape
         shapes["final_ln/scale"] = (c.d_model,)
         if c.norm == "layernorm":
             shapes["final_ln/bias"] = (c.d_model,)
@@ -341,8 +358,9 @@ class Transformer:
         """Fresh weights from ``rng`` (a seed or a ``torch.Generator`` on
         the target device), on ``device`` (default: the card).  Same
         scheme as the reference — unit norm scales, zero biases, N(0,
-        0.02) embeddings, fan-in-scaled matrices with depth-scaled
-        residual outputs — but a different random stream."""
+        0.02) embeddings, fan-in-scaled matrices (the middle dim of an
+        [E, in, out] expert bank) with depth-scaled residual outputs — but
+        a different random stream."""
         c = self.config
         dev = resolve_device(device)
         gen = (rng if isinstance(rng, torch.Generator)
@@ -360,7 +378,7 @@ class Transformer:
                     scale = 0.02
                 else:
                     scale = 1.0 / math.sqrt(shape[-2])
-                    if name.endswith(("attn/wo", "mlp/w2")):
+                    if name.endswith(("attn/wo", "mlp/w2", "moe/w2")):
                         scale /= math.sqrt(2.0 * c.n_layers)
                 params[name] = x * scale
         return params
@@ -448,10 +466,21 @@ class Transformer:
 
     def ffn_residual(self, params: Mapping[str, Tensor], layer: int,
                      h: Tensor, decode: bool = False) -> tuple[Tensor, Tensor]:
-        """The layer's dense FFN branch: (new_h, aux_loss = 0)."""
-        lp, p = self.layer_view(params, layer)
-        return (self.mlp_residual(lp, p, h),
-                torch.zeros((), dtype=torch.float32, device=h.device))
+        """The layer's FFN branch, dense MLP or routed MoE per the config:
+        (new_h, aux_loss; 0 for a dense layer).  ``decode`` runs MoE
+        drop-free (capacity = the token count): capacity dropping is a
+        batch-global training mechanism and cannot be reproduced causally
+        in KV-cached decoding."""
+        if not self.config.is_moe_layer(layer):
+            lp, p = self.layer_view(params, layer)
+            return (self.mlp_residual(lp, p, h),
+                    torch.zeros((), dtype=torch.float32, device=h.device))
+        p = f"layer{layer}"
+        x = self._norm(params, f"{p}/ln2", h)
+        cap = h.shape[0] * h.shape[1] if decode else None
+        moe_out, aux = self._moe.apply(params, x, prefix=f"{p}/",
+                                       capacity_override=cap)
+        return h + moe_out.to(self.config.dtype), aux
 
     def final_logits(self, params: Mapping[str, Tensor], h: Tensor) -> Tensor:
         h = self._norm(params, "final_ln", h)
@@ -651,3 +680,36 @@ def llama_350m(vocab: int = 32000, seq: int = 1024, dtype=torch.bfloat16,
         n_kv_heads=kv_heads, mlp_act="swiglu", remat_policy=remat_policy,
         max_seq=seq, dtype=dtype, remat=remat, scan_layers=scan_layers,
         loss_chunk=math.gcd(128, seq)))
+
+
+def moe_lm(vocab: int = 1024, seq: int = 256, dtype=torch.float32,
+           remat: bool = False, top_k: int = 1) -> Transformer:
+    """Test-scale MoE LM: every 2nd layer is an expert-routed FFN
+    (``top_k=1`` Switch, ``top_k=2`` Mixtral-style)."""
+    return Transformer(TransformerConfig(
+        vocab=vocab, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+        max_seq=seq, dtype=dtype, moe_every=2, moe_experts=4, remat=remat,
+        moe_top_k=top_k))
+
+
+def moe_350m(vocab: int = 32000, seq: int = 1024, dtype=torch.bfloat16,
+             remat: bool = True, top_k: int = 1,
+             experts: int = 8) -> Transformer:
+    """Flagship-scale MoE: the :func:`lm_350m` trunk (24 layers, d_model
+    1024, seq 1024) with every 2nd FFN routed over ``experts`` experts,
+    ~350M parameters active a token (top-1) of ~1.07B."""
+    return Transformer(TransformerConfig(
+        vocab=vocab, d_model=1024, n_heads=16, n_layers=24, d_ff=4096,
+        max_seq=seq, dtype=dtype, remat=remat, moe_every=2,
+        moe_experts=experts, moe_top_k=top_k,
+        loss_chunk=math.gcd(128, seq)))
+
+
+def switch_lm(vocab: int = 1024, seq: int = 256, dtype=torch.float32,
+              remat: bool = False, top_k: int = 1) -> Transformer:
+    """Test-scale all-MoE LM (``moe_every=1``, the Switch/Mixtral
+    layout)."""
+    return Transformer(TransformerConfig(
+        vocab=vocab, d_model=128, n_heads=4, n_layers=4, d_ff=512,
+        max_seq=seq, dtype=dtype, moe_every=1, moe_experts=4, remat=remat,
+        moe_top_k=top_k))

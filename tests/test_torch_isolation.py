@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and its entry points run on the CUDA card unless the caller asks
-for the CPU (the PS optimizer factory degrades to the host optimizer
-instead, and counts it, as the reference's does)."""
+package, and ``transformers`` only inside the functions that load a
+checkpoint by path (the card has none), and its entry points run on the
+CUDA card unless the caller asks for the CPU (the PS optimizer factory
+degrades to the host optimizer instead, and counts it, as the
+reference's does)."""
 
 import ast
 import os
@@ -15,6 +17,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "parameter_server_distributed_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "parameter_server_distributed_tpu")
+# what the import check's process also lacks, as the card does
+ABSENT = BLOCKED + ("transformers",)
 
 
 def _port_sources():
@@ -85,6 +89,32 @@ def test_image_and_data_modules_are_scanned():
             os.path.join("data", "text.py")} <= scanned
 
 
+def test_moe_hf_and_eval_modules_are_scanned():
+    scanned = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {os.path.join("models", "moe.py"),
+            os.path.join("models", "hf.py"),
+            os.path.join("cli", "eval_main.py")} <= scanned
+
+
+def test_transformers_only_inside_functions():
+    """``transformers`` is imported where a checkpoint is loaded by path,
+    inside that function, never at a module's top level."""
+    found = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] == "transformers"]
+    assert found == []
+
+
 def test_name_match_is_whole_name():
     assert _blocked("jax.numpy") and _blocked("parameter_server_distributed_tpu")
     assert not _blocked("parameter_server_distributed_tpu_torch.models")
@@ -95,7 +125,7 @@ def test_port_imports_and_serves_with_jax_blocked():
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
 
-        BLOCKED = {BLOCKED!r}
+        BLOCKED = {ABSENT!r}
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -285,7 +315,39 @@ def test_port_imports_and_serves_with_jax_blocked():
             sharded.close()
         finally:
             coordinator.stop()
-        assert not any(m.split(".")[0] in ("jax", "jaxlib")
+        # an MoE LM serves, and a GPT-2 store converts from a plain
+        # stand-in of a transformers model
+        import types
+        import numpy as np
+        model = get_model("moe_lm")
+        srv = DecodeServer(model, model.init_params(0, device="cpu"),
+                           slots=1, max_len=32, device="cpu")
+        rid = srv.submit([1, 2, 3], max_new_tokens=3)
+        assert len(srv.run_to_completion()[rid]) == 3
+        from parameter_server_distributed_tpu_torch.models.hf import \
+            from_hf_gpt2
+        cfg = types.SimpleNamespace(
+            vocab_size=16, n_embd=8, n_head=2, n_layer=1, n_positions=8,
+            layer_norm_epsilon=1e-5)
+        sd = {{"transformer.wte.weight": np.zeros((16, 8)),
+              "transformer.wpe.weight": np.zeros((8, 8)),
+              "transformer.ln_f.weight": np.ones(8),
+              "transformer.ln_f.bias": np.zeros(8)}}
+        for name, shape in (("ln_1.weight", (8,)), ("ln_1.bias", (8,)),
+                            ("attn.c_attn.weight", (8, 24)),
+                            ("attn.c_attn.bias", (24,)),
+                            ("attn.c_proj.weight", (8, 8)),
+                            ("attn.c_proj.bias", (8,)),
+                            ("ln_2.weight", (8,)), ("ln_2.bias", (8,)),
+                            ("mlp.c_fc.weight", (8, 32)),
+                            ("mlp.c_fc.bias", (32,)),
+                            ("mlp.c_proj.weight", (32, 8)),
+                            ("mlp.c_proj.bias", (8,))):
+            sd["transformer.h.0." + name] = np.zeros(shape)
+        hf_model, hf_params = from_hf_gpt2(types.SimpleNamespace(
+            config=cfg, state_dict=lambda: sd), device="cpu")
+        assert sorted(hf_params) == sorted(hf_model.param_shapes())
+        assert not any(m.split(".")[0] in ("jax", "jaxlib", "transformers")
                        or m == "parameter_server_distributed_tpu"
                        or m.startswith("parameter_server_distributed_tpu.")
                        for m in sys.modules)

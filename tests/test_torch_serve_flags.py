@@ -13,6 +13,7 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from parameter_server_distributed_tpu.checkpoint import codec as ref_codec
 from parameter_server_distributed_tpu.models import generation as jg
@@ -91,14 +92,16 @@ def _case(flags, error, needle, case_id=None):
                         id=case_id or f"{flags}-{needle}")
 
 
-# --draft-model, --beam, --length-penalty, --draft-len, --serve-port and
-# --follow are ported:
+# --draft-model, --beam, --length-penalty, --draft-len, --serve-port,
+# --follow and --hf-gpt2 are ported:
 # their cases now hold the reference's own checks of those options (each
-# keeps its case's id); the flags still unported refuse naming their item
+# keeps its case's id; serve_main refuses nothing with --hf-gpt2, so its
+# case serves a saved checkpoint); the flags still unported refuse naming
+# their item
 @pytest.mark.parametrize("flags,error,needle", [
     _case("--ckpt-dir=/x", SystemExit, "item 8"),
     _case("--avg-last=2", SystemExit, "item 8"),
-    _case("--hf-gpt2=gpt2", SystemExit, "item 7"),
+    _case("--hf-gpt2={checkout}", None, "", "--hf-gpt2=gpt2-item 7"),
     _case("--draft-model=mnist_mlp", ValueError, "is not an LM",
           "--draft-model=tiny_lm-speculative"),
     _case("--follow", SystemExit, "explicit value",
@@ -109,9 +112,34 @@ def _case(flags, error, needle, case_id=None):
     _case("--lora-alpha", SystemExit, "explicit value"),
     _case("--quant=int4", SystemExit, "takes int8"),
     _case("--kv-cache=fp8", SystemExit, "takes int8")])
-def test_serve_main_refusals(flags, error, needle):
+def test_serve_main_refusals(flags, error, needle, request, monkeypatch,
+                            capsys):
+    if error is None:
+        # a tiny GPT-2 checkpoint, converted and served (token request)
+        checkout = request.getfixturevalue("hf_checkout")
+        monkeypatch.setattr(sys, "stdin", io.StringIO(
+            '{"id": 1, "tokens": [1, 2, 3], "max_new": 3}\n'))
+        assert serve_main.main(["--model=small_lm", "--device=cpu",
+                                *flags.format(checkout=checkout).split()]) == 0
+        done = [json.loads(line) for line in capsys.readouterr().out.split(
+            "\n") if '"done"' in line]
+        assert len(done) == 1 and len(done[0]["tokens"]) == 3
+        return
     with pytest.raises(error, match=needle):
         serve_main.main(["--model=small_lm", "--device=cpu", *flags.split()])
+
+
+@pytest.fixture
+def hf_checkout(tmp_path, monkeypatch):
+    """A random tiny GPT-2 saved with ``save_pretrained`` (no tokenizer
+    files; the hub client offline)."""
+    transformers = pytest.importorskip("transformers")
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    torch.manual_seed(0)
+    transformers.GPT2LMHeadModel(transformers.GPT2Config(
+        vocab_size=64, n_positions=32, n_embd=16, n_layer=1,
+        n_head=2)).save_pretrained(tmp_path / "gpt2")
+    return str(tmp_path / "gpt2")
 
 
 def test_follow_flags_are_ported():
@@ -133,7 +161,9 @@ def test_follow_flags_are_ported():
           "draft_len must be >= 1", "--draft-len=2-item 6"),
     _case("--ckpt-dir=/x", SystemExit, "item 8"),
     _case("--avg-last=2", SystemExit, "item 8"),
-    _case("--hf-gpt2=gpt2", SystemExit, "item 7"),
+    # the reference refuses --hf-gpt2 with --ckpt (generate_main.py:199)
+    _case("--hf-gpt2=gpt2 --ckpt=/x", ValueError, "does not combine",
+          "--hf-gpt2=gpt2-item 7"),
     _case("--bogus=1", SystemExit, "unknown flag"),
     _case("--quant=int4", SystemExit, "takes int8")])
 def test_generate_main_refusals(flags, error, needle):

@@ -206,8 +206,10 @@ def test_factories_match_reference_shapes():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.Transformer(tt.TransformerConfig(moe_every=2))
+    # MoE layers are ported; the reference's refusal of MoE under the
+    # stacked layout stands (its layers are not homogeneous)
+    with pytest.raises(ValueError, match="homogeneous layers"):
+        tt.Transformer(tt.TransformerConfig(moe_every=2, scan_layers=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.select_attention("ring")
     with pytest.raises(ValueError, match="unknown attention"):
